@@ -1,4 +1,4 @@
-"""cstone-tpu: TPU-native distributed octrees for particle simulations.
+"""cstone: distributed octrees for particle simulations in JAX.
 
 A JAX/XLA/Pallas re-design of the capabilities of cornerstone-octree
 (reference: github.com/sebkelle1/cornerstone-octree): 3D Morton + Hilbert
@@ -7,16 +7,17 @@ space-filling-curve keys (32/64-bit), cornerstone linear octree build
 via collision detection, fixed-radius neighbor search, and particle/halo
 exchange over a jax.sharding.Mesh — unified behind a single `Domain` class.
 
-Everything is designed TPU-first:
-  - all hot paths are jittable, static-shaped, and vectorized (VPU/MXU)
+Design:
+  - all hot paths are jittable, static-shaped and vectorized over whole
+    arrays
   - dynamic sizes (tree nodes, particle counts) are carried as
     capacity-padded arrays plus validity counts
   - distribution uses jax collectives (psum/all_gather/all_to_all/ppermute)
-    over ICI instead of MPI point-to-point
+    instead of MPI point-to-point
 
 64-bit SFC keys require jax x64 mode; we enable it at import. All floating
-point arrays remain explicitly float32 by default so TPU performance is
-unaffected (float64 is never created unless the user asks for it).
+point arrays remain explicitly float32 by default (float64 is never
+created unless the user asks for it).
 """
 
 import jax

@@ -1,6 +1,6 @@
 """SFC domain decomposition: assignment of key ranges to ranks.
 
-TPU-native re-design of the reference's decomposition (reference:
+JAX re-design of the reference's decomposition (reference:
 include/cstone/domain/domaindecomp.hpp). A "rank" is a position along the
 device-mesh axis; the assignment (one key boundary per rank) is replicated
 on every device, exactly like the reference's SfcAssignment.
@@ -60,7 +60,7 @@ def uniform_bins(counts: jax.Array, n_nodes, n_bins: int) -> Tuple[jax.Array, ja
     total = scan[jnp.asarray(n_nodes, jnp.int32)]
 
     # integer split points (the reference uses double, domaindecomp.hpp:56-64;
-    # exact integer math avoids float64, which TPUs lack)
+    # exact integer math, no float rounding in the split points)
     i = jnp.arange(1, n_bins, dtype=jnp.int64)
     targets = (i * total) // n_bins
     mids = jnp.searchsorted(scan, targets, side="left").astype(jnp.int32)

@@ -1,13 +1,13 @@
 """The Domain: global octree + decomposition + particle/halo management.
 
-TPU-native re-design of the reference's top-level API (reference:
+JAX re-design of the reference's top-level API (reference:
 include/cstone/domain/domain.hpp). One `Domain.sync` call corresponds to
 Domain::sync (domain.hpp:197-243): assign particles to ranks along the SFC,
 exchange them, discover halos, and lay out local buffers as
 [halos | assigned | halos], so that after sync every rank can run
 neighbor searches over its assignment.
 
-TPU adaptation (v1): a "rank" is a position on the device-mesh axis; all
+JAX adaptation (v1): a "rank" is a position on the device-mesh axis; all
 collective steps are XLA collectives inside shard_map. The particle
 exchange is implemented as all_gather + global sort + slice: because the
 exchanged pool is globally SFC-sorted, every leaf cell's particles sit at
@@ -15,7 +15,7 @@ exchanged pool is globally SFC-sorted, every leaf cell's particles sit at
 of every rank are pure gathers from it. This replaces the reference's
 sparse point-to-point MPI exchange (domaindecomp_mpi.hpp,
 exchange_halos.hpp) with two dense collectives — the natural first mapping
-onto ICI; a ppermute-based neighbor exchange is the planned optimization.
+onto the device interconnect; a ppermute-based neighbor exchange is the planned optimization.
 
 All shapes are static: local buffers have a fixed per-rank capacity and
 invalid slots carry the removeKey sentinel, which sorts behind every valid
@@ -226,7 +226,7 @@ class Domain:
         # ranks within +-peer_window on the rank axis (SFC-surface peers,
         # the findPeersMac bound, peers.hpp:63-117): buffers become
         # (2W+1, cap) instead of (n_ranks, cap) and the exchanges ride
-        # ppermute rounds over ICI neighbors. Cells owned by ranks outside
+        # ppermute rounds between neighbouring ranks. Cells owned by ranks outside
         # the window take their counts from the global tree (rangeCount,
         # focus/rebalance.hpp:279-299). A too-small window is reported in
         # overflow_detail[6] (the max rank offset actually needed) and
@@ -238,15 +238,18 @@ class Domain:
         # concatenated dest-sorted operand per exchange, buffers sized by
         # the MEASURED surface total, independent of the rank count
         # (parallel/ragged.py — the peers.hpp:63-117 traffic bound realized
-        # the TPU way). treelet_cap / halo_req_cap / halo_cap then mean
+        # as one collective). treelet_cap / halo_req_cap / halo_cap then mean
         # TOTALS per rank instead of per-pair lane widths, still grown by
         # sync_with_retry on overflow. "dense" keeps the (R, cap)
         # all_to_all protocols; peer_window applies to dense only.
         # protocol=None auto-selects: ragged where the native
-        # ragged_all_to_all HLO lowers (TPU), dense elsewhere (the CPU
-        # test mesh runs ragged only when asked, via the emulation).
+        # ragged_all_to_all is switched on (parallel/ragged.use_native_ragged,
+        # CSTONE_RAGGED=native), dense elsewhere (ragged runs the emulation
+        # only when asked for).
         if protocol is None:
-            protocol = "ragged" if jax.default_backend() == "tpu" else "dense"
+            from ..parallel.ragged import use_native_ragged
+
+            protocol = "ragged" if use_native_ragged() else "dense"
         if protocol not in ("dense", "ragged"):
             raise ValueError(f"unknown protocol {protocol!r}")
         if protocol == "ragged" and self.peer_window:
@@ -1014,8 +1017,8 @@ class Domain:
 
         if single:
             # no halos -> start_index == 0 and the layout order IS the
-            # sorted order: placement is the identity (scatters cost
-            # ~18ns/element on TPU; skipping five of them saves ~100ms/M)
+            # sorted order: placement is the identity (five scatters
+            # skipped)
             def place(owned, fill):
                 return owned
         else:
@@ -1309,7 +1312,7 @@ class Domain:
         (with n_local = end_index - start_index): feeding layout-order
         buffers back with their halo slots would double-count halo
         particles as locally owned. The reference keeps explicit
-        start/end indices instead (domain.hpp:389-409); on TPU a dynamic
+        start/end indices instead (domain.hpp:389-409); here a dynamic
         roll keeps the shape static.
         """
         return jnp.roll(field, -result.start_index, axis=0)

@@ -1,6 +1,6 @@
 """Particle buffer layout: leaf cells -> particle index ranges.
 
-TPU-native equivalent of the reference's layout computation (reference:
+JAX equivalent of the reference's layout computation (reference:
 include/cstone/domain/layout.hpp). On a single device the layout is the
 exclusive scan of leaf counts; in the distributed Domain only cells that
 are locally present (assigned or halo) contribute (layout.hpp:150-164).

@@ -1,6 +1,6 @@
 """Named particle fields with acquire/release lifetime states.
 
-TPU-native equivalent of the reference's field helpers (reference:
+JAX equivalent of the reference's field helpers (reference:
 include/cstone/fields/field_states.hpp:62-104, field_get.hpp:42-89,
 data_util.hpp:41). The reference reuses released buffers to avoid
 allocation; with JAX's functional arrays the same contract becomes a

@@ -1,6 +1,6 @@
 """Forced key injection into a cornerstone leaf array.
 
-TPU-native equivalent of the reference's injectKeys (reference:
+JAX equivalent of the reference's injectKeys (reference:
 include/cstone/focus/inject.hpp:52-111): when the focus rebalance cannot
 resolve a mandatory key by splitting one level, the full spanning cover of
 the key is spliced into the tree directly. Static-shape version: append

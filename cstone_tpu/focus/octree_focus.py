@@ -1,13 +1,13 @@
 """Focused (locally essential) octree: combined count+MAC rebalancing.
 
-TPU-native re-design of the reference's focus-tree update (reference:
+JAX re-design of the reference's focus-tree update (reference:
 include/cstone/focus/octree_focus.hpp:83-215 CombinedUpdate, and the
 orchestration in octree_focus_mpi.hpp:108-273). The focus tree is a
 cornerstone leaf array refined to bucket_size_focus inside the rank's
 assignment, kept coarse outside wherever the MAC passes, with mandatory
 resolution at the assignment boundaries of all peer ranks.
 
-TPU adaptation (v1): exact leaf counts come from one batched binary search
+JAX adaptation (v1): exact leaf counts come from one batched binary search
 over the globally SFC-sorted particle pool that the Domain's gather-based
 exchange already materializes — replacing the reference's rangeCount +
 peer count exchange chain (octree_focus_mpi.hpp:205-273) with a dense

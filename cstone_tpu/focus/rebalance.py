@@ -1,6 +1,6 @@
 """Locally-essential-tree (LET) rebalance decisions.
 
-TPU-native re-design of the reference's focus rebalance ops (reference:
+JAX re-design of the reference's focus rebalance ops (reference:
 include/cstone/focus/rebalance.hpp + rebalance_gpu.cu). All decisions are
 per-node vectorized; ancestor walks unroll into static maxLevel-step loops
 (chains are at most maxLevel long). enforce_keys processes all mandatory
@@ -132,8 +132,8 @@ def protect_ancestors(
     # level DOWNSWEEP instead of per-node ancestor chasing: a node's
     # nearest nonzero-op ancestor is itself if its op != 0, else its
     # parent's. Children are 8 consecutive slots tiling [1, n_nodes), so
-    # each level is a static slice plus one small parent gather — the old
-    # chase cost 22 rounds of full-capacity gathers (~29ms at 37k nodes).
+    # each level is a static slice plus one small parent gather instead of
+    # up to maxLevel rounds of full-capacity gathers.
     n_groups = (cap - 1) // 8
     gidx = jnp.arange(n_groups, dtype=jnp.int32)
     child0 = 1 + 8 * gidx

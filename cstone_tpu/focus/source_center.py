@@ -1,6 +1,6 @@
 """Source (mass) centers per octree node.
 
-TPU-native re-design of the reference's source centers (reference:
+JAX re-design of the reference's source centers (reference:
 include/cstone/focus/source_center.hpp + source_center_gpu.cu). Leaf mass
 centers come from one segment-sum over SFC-sorted particles; the upsweep
 is the generic level-by-level combine. A center is a (x, y, z, m) Vec4;

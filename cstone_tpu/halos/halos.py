@@ -1,6 +1,6 @@
 """Halo discovery, layout, and exchange as a reusable state machine.
 
-TPU-native equivalent of the reference's Halos class (reference:
+JAX equivalent of the reference's Halos class (reference:
 include/cstone/halos/halos.hpp:107-268): `discover` flags halo leaves via
 the collision traversal, `compute_layout` derives the halos-owned-halos
 buffer layout and records the request-keys exchange pattern as a

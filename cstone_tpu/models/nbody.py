@@ -4,12 +4,11 @@ Demo client for the syncGrav path (the reference's gravity client is
 SPH-EXA/ryoanji; cornerstone itself provides the tree + MAC machinery,
 reference: include/cstone/traversal/macs.hpp, focus/source_center.hpp).
 
-TPU-native design: like the neighbor search, targets are SFC-compact
+JAX design: like the neighbor search, targets are SFC-compact
 particle groups. Each group runs one batched MAC traversal: nodes passing
 the vector MAC against the group's bounding box contribute their monopole
 (mass at center-of-mass); failing leaves are collected for dense
-particle-particle interaction — an (targets x sources) kernel that is
-VPU/MXU-friendly.
+particle-particle interaction — a dense (targets x sources) tile.
 """
 
 from __future__ import annotations

@@ -15,7 +15,7 @@ import jax
 import jax.numpy as jnp
 
 from ..domain.domain import Domain, DomainState, SyncResult
-from ..sfc.box import Box
+from ..ops.primitives import cubic_spline_w as _cubic_spline_w
 
 __all__ = ["SphState", "sph_density_step"]
 
@@ -32,13 +32,6 @@ class SphState:
     n_local: jax.Array
 
 
-def _cubic_spline_w(q: jax.Array) -> jax.Array:
-    """Standard cubic-spline SPH kernel (unnormalized)."""
-    w1 = 1.0 - 1.5 * q * q * (1.0 - 0.5 * q)
-    w2 = 0.25 * (2.0 - q) ** 3
-    return jnp.where(q < 1.0, w1, jnp.where(q < 2.0, w2, 0.0))
-
-
 def sph_density_step(
     domain: Domain,
     state: SphState,
@@ -49,7 +42,6 @@ def sph_density_step(
     chunk: int = 32,
     cell_level: int = 0,
     cell_cap: int = 0,
-    interpret: bool = False,
 ) -> Tuple[SphState, jax.Array, SyncResult]:
     """One density evaluation: sync + neighbor density sum.
 
@@ -58,10 +50,11 @@ def sph_density_step(
 
     With `cell_level`/`cell_cap` set (host-side choices: choose_cell_level
     from max(h), cap from expected occupancy) the density runs the FUSED
-    cell-list kernel — per-particle masses ride a kernel mass plane, no
-    neighbor-index lists in HBM (find_neighbors.cuh:94-124's op-in-
-    traversal design; traversal/celllist.cell_list_sph_density). Cell
-    occupancy overflow folds into res.overflow for the usual host retry.
+    cell-list stencil — per-particle masses ride a candidate mass plane,
+    no neighbor-index lists in device memory (find_neighbors.cuh:94-124's
+    op-in-traversal design; traversal/celllist.cell_list_sph_density).
+    Cell occupancy overflow folds into res.overflow for the usual host
+    retry.
     Without them, the tree-traversal index path runs (the validation
     oracle and the fallback for strongly varying h).
     """
@@ -79,7 +72,6 @@ def sph_density_step(
         rho, cell_ovf = cell_list_sph_density(
             res.keys, res.x, res.y, res.z, res.h, box, int(cell_level),
             int(cell_cap), mass=m_new, n_valid=res.n_with_halos,
-            interpret=interpret,
         )
         res = dataclasses.replace(
             res, overflow=jnp.maximum(res.overflow, cell_ovf.astype(jnp.int32))
@@ -94,7 +86,6 @@ def sph_density_step(
 
     # density via a dedicated neighbor pass: sum_j m_j W(|rij|/h_i)
     from ..traversal.neighbors import _find_neighbors_impl
-    from ..traversal import make_ns_view
 
     view = domain.ns_view(res, box)
     cap = res.x.shape[0]

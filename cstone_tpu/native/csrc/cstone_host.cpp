@@ -1,10 +1,10 @@
-// Host-side native kernels for cstone-tpu.
+// Host-side native kernels for cstone.
 //
-// The TPU compute path is JAX/XLA; this C++ library covers the host-side
+// The device compute path is JAX/XLA; this C++ library covers the host-side
 // runtime work the reference does on CPU (reference: the OpenMP paths of
 // include/cstone/{sfc,tree}) — initial-condition generation, checkpoint
 // tooling, and IO-adjacent key/tree operations on host buffers without a
-// device round-trip. Implemented from the cstone-tpu Python semantics (see
+// device round-trip. Implemented from the cstone Python semantics (see
 // cstone_tpu/sfc/{morton,hilbert}.py, tree/csarray.py); validated against
 // them in tests/test_native.py.
 //

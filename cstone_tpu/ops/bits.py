@@ -1,9 +1,9 @@
 """Bit-level primitives on integer lanes.
 
-TPU-native replacement for the reference's clz/popcount foundation
+JAX replacement for the reference's clz/popcount foundation
 (reference: include/cstone/primitives/clz.hpp). All functions are
-elementwise over jnp arrays of uint32/uint64 and fully vectorizable on
-the VPU; `jax.lax.clz` / `population_count` lower to single HW ops.
+elementwise over jnp arrays of uint32/uint64 and fully vectorizable;
+`jax.lax.clz` / `population_count` lower to single HW ops.
 """
 
 from __future__ import annotations

@@ -1,839 +1,208 @@
-"""Pallas TPU kernel for the 27-point cell-list neighbor stencil.
+"""Pallas kernel (Triton route) for the 27-point cell-list stencil.
 
-Dense, regular companion to traversal/celllist.py: the XLA roll-stencil is
-exact but runs ~6-8x above the VPU roofline (the (n_cells, cap, cap)
-broadcast/reduce pattern materializes badly). This kernel keeps the whole
-working set in VMEM: grid over (x, y) cell columns, per step DMA the 3x3
-neighborhood's z-lines from HBM, then a z-block loop computes dense
-(targets x candidates) f32 distance tiles.
+Dense companion to traversal/celllist.py, which packs SFC-sorted
+particles into an ELL grid: (n_cells, cap) planes in row-major cell
+order, empty slots holding INVALID_COORD. One program handles one target
+cell. It loads the cell's targets once, walks the 27 neighbour cells,
+loads each neighbour's candidate row and adds a (cap_t, cap_c) tile of
+pair terms in registers; one row reduction at the end writes the
+target-side sums. The periodic wrap is applied per neighbour offset (+-L
+on the wrapped axis), open boundaries mask the out-of-range neighbours,
+so no ghost-cell copy and no neighbour-index list reaches device memory
+(the reference applies its per-pair op inside the warp traversal the
+same way, find_neighbors.cuh:94-124).
 
-Semantics contract (same as celllist.stencil_neighbor_counts, reference
-findneighbors.hpp:96-165): count j != i with |r_ij|^2 < r2_i. Ghost cells
-(periodic wrap with +-L correction, or invalid for open boundaries) are
-materialized by the XLA prep in `pad_cell_grid`, so the kernel sees no
-boundary logic at all. Invalid candidate slots carry coordinate 1e30 (fail
-every distance test); invalid targets carry r2 < 0 (count 0). The kernel
-counts the self-pair (d2 = 0 < r2); the wrapper subtracts it, which also
-keeps coincident distinct particles counted, like the reference.
-
-Layout: candidates ride the LANE axis (z-lines are contiguous minor-dim
-vectors; all slices start at lane multiples because zb_cells*cap is a
-multiple of 128). Targets ride the SUBLANE axis via an XLA-prepared
-(D*D, D*cap, 4) tensor blocked per grid step — the same split the v2
-run-streaming kernel uses (targets (G,3) VMEM blocks vs streamed tiles).
+Contract, shared with the plain reference celllist.stencil_xla:
+  op="count":   out_i = sum_j [d2_ij < r2_i]       tgt param plane = r2
+                                                   (< 0 marks an empty slot)
+  op="density": out_i = sum_j m_j W(|r_ij| / h_i)  tgt param plane = h
+                (m_j = 1 without a mass plane; W the unnormalised cubic
+                spline)
+exclude_self=True means targets and candidates are the same pack, and
+drops the j == i slot pair of the centre cell (coincident distinct
+particles still count each other, like the reference's i != j rule).
 """
 
 from __future__ import annotations
 
-from functools import lru_cache, partial
-from typing import Tuple
+from functools import partial
+from typing import Optional, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-__all__ = [
-    "pad_cell_grid",
-    "stencil_counts_pallas",
-    "stencil_counts_pallas_sym",
-    "stencil_density_pallas_sym",
-    "stencil_counts_pallas_cross",
-]
+from .primitives import cubic_spline_w
+
+__all__ = ["INVALID_COORD", "stencil_pallas"]
 
 INVALID_COORD = np.float32(1e30)
 
-
-@lru_cache(maxsize=16)
-def _pad_row_maps(D: int):
-    """Static (numpy) maps for the ghost-row gather: padded row (ip, jp)
-    -> core row ((ip-1)%D, (jp-1)%D), plus the per-row x/y overflow signs
-    (-1/0/+1) that drive wrap corrections and open-boundary fills."""
-    idx = np.arange(D + 2) - 1
-    over = np.where(idx < 0, -1, np.where(idx >= D, 1, 0)).astype(np.float32)
-    src = (idx + D) % D
-    ip, jp = np.meshgrid(src, src, indexing="ij")
-    row_src = (ip * D + jp).reshape(-1).astype(np.int32)  # (Dp*Dp,)
-    over_x = np.repeat(over, D + 2)[:, None]  # (Dp*Dp, 1)
-    over_y = np.tile(over, D + 2)[:, None]
-    return row_src, over_x, over_y
+# Launch shape: each program takes up to BLOCK targets of one cell and
+# walks the neighbour cells' candidates BLOCK at a time, so the register
+# tile stays (BLOCK, BLOCK) at any capacity. These were the fastest of
+# 2/4/8 warps x 1/2/3 stages on an H100 at 1M particles, level 5, cap 64.
+BLOCK = 64
+NUM_WARPS = 8
+NUM_STAGES = 2
 
 
-def pad_cell_grid(
-    ex: jax.Array,  # (D, D, D, cap) ELL coords, row-major cell order
-    ey: jax.Array,
-    ez: jax.Array,
-    valid: jax.Array,  # (D, D, D, cap) occupancy
-    lengths,  # (3,) box lengths (jax or numpy)
-    periodic: Tuple[bool, bool, bool],
-    extra: jax.Array = None,  # optional per-slot scalar (e.g. r2), plain wrap
-    extra_fill: float = -1.0,  # open-ghost fill: -1 for r2, +1e30 for h
-    extra2: jax.Array = None,  # second per-slot scalar plane (e.g. mass)
-    extra2_fill: float = 0.0,
-):
-    """Materialize ghost cells: wrap + length-correct periodic dims, mark
-    open-boundary ghosts invalid. Returns (xp, yp, zp[, extra][, extra2])
-    shaped (Dp*Dp, 1, S*Dp*cap), sections concatenated on the lane axis.
-
-    Formulated as ONE static row-gather per plane (padded row <- wrapped
-    core row) + a lane concat for the z ghosts + fused elementwise
-    corrections/fills — the earlier axis-by-axis concat chain cost 14.8ms
-    at 1M/level-5 (vs ~2ms for the whole kernel input prep this way,
-    scripts/exp_sym.py): every concat stage forced its own relayout pass.
-
-    Ghost semantics (unchanged): the coordinate shift applies only to the
-    coordinate matching the wrapped axis; open-boundary ghost COORDS fill
-    with -1e30 (not +1e30) because invalid in-cell slots carry +1e30 and a
-    ghost-vs-invalid pair must have d2 = inf, never 0 — at d2 == 0 the
-    density op's W(0) = 1 would leak through the fold onto real slots of
-    the mirror cell. Extra planes wrap unshifted; their open-ghost fill
-    must make the op inert (r2 -> -1, h -> +1e30, mass -> 0).
-    """
-    D, _, _, cap = ex.shape
-    Dp = D + 2
-    L = jnp.asarray(lengths, jnp.float32)
-    row_src_np, over_x_np, over_y_np = _pad_row_maps(D)
-    row_src = jnp.asarray(row_src_np)
-    over_x = jnp.asarray(over_x_np)
-    over_y = jnp.asarray(over_y_np)
-    ghost_x = over_x != 0.0
-    ghost_y = over_y != 0.0
-
-    ex = jnp.where(valid, ex, INVALID_COORD)
-    ey = jnp.where(valid, ey, INVALID_COORD)
-    ez = jnp.where(valid, ez, INVALID_COORD)
-
-    def build(plane, coord_axis, fill):
-        g = plane.reshape(D * D, D * cap)[row_src]  # (Dp*Dp, D*cap)
-        # z ghosts ride the lane axis: [z=D-1 run | core | z=0 run]
-        zlo = g[:, (D - 1) * cap:]
-        zhi = g[:, :cap]
-        if periodic[2]:
-            if coord_axis == 2:
-                zlo = zlo - L[2]
-                zhi = zhi + L[2]
-        else:
-            zlo = jnp.full_like(zlo, fill)
-            zhi = jnp.full_like(zhi, fill)
-        g = jnp.concatenate([zlo, g, zhi], axis=1)  # (Dp*Dp, Dp*cap)
-        # x/y wrap corrections first, open fills last (the fills must win
-        # in corner ghosts; the f32 add would absorb into +-1e30 anyway)
-        if periodic[0] and coord_axis == 0:
-            g = g + over_x * L[0]
-        if periodic[1] and coord_axis == 1:
-            g = g + over_y * L[1]
-        if not periodic[0]:
-            g = jnp.where(ghost_x, fill, g)
-        if not periodic[1]:
-            g = jnp.where(ghost_y, fill, g)
-        return g
-
-    secs = [
-        build(ex, 0, -INVALID_COORD),
-        build(ey, 1, -INVALID_COORD),
-        build(ez, 2, -INVALID_COORD),
-    ]
-    if extra is not None:
-        secs.append(build(extra, -1, extra_fill))
-    if extra2 is not None:
-        secs.append(build(extra2, -1, extra2_fill))
-    # (Dp*Dp, 1, S*Dp*cap): the flattened (x, y) index rides dim 0, which
-    # is outside the (sublane, lane) tiling of the last two dims — so the
-    # kernel's per-row DMA slices need no 8/128 alignment. Sections sit
-    # side by side on the lane axis (each Dp*cap wide, a multiple of 128),
-    # letting one DMA fetch a whole cell row.
-    return jnp.concatenate(secs, axis=-1).reshape(Dp * Dp, 1, -1)
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
 
 
 def _kernel(
-    cand_hbm,  # (Dp*Dp, 1, 3*Dp*cap) HBM candidate grid (x|y|z on lanes)
-    tgt_ref,  # (1, D*cap, 4) VMEM block: x,y,z,r2 per target
-    out_ref,  # (1, D*cap, 1) VMEM block
-    cw,  # VMEM scratch (2, 9, 1, 3*Dp*cap) double-buffered windows
-    sems,  # DMA semaphores (2, 3)
+    len_ref,  # (4,) box lengths (x, y, z, unused)
+    tx_ref, ty_ref, tz_ref, tp_ref,  # (n_cells*cap_t,) targets; tp = r2|h
+    cx_ref, cy_ref, cz_ref,  # (n_cells*cap_c,) candidates
+    *rest,  # [cm_ref (n_cells*cap_c,) candidate mass], out_ref
+    D: int,
+    cap_t: int,
+    cap_c: int,
+    bt: int,
+    bc: int,
+    periodic: Tuple[bool, bool, bool],
+    op: str,
+    exclude_self: bool,
+):
+    cm_ref = rest[0] if len(rest) == 2 else None
+    out_ref = rest[-1]
+    f32 = jnp.float32
+    c = pl.program_id(0)  # target cell
+    tblk = pl.program_id(1)  # block of bt target slots within the cell
+    n_cb = cap_c // bc  # candidate blocks per neighbour cell
+    cell = (c // (D * D), (c // D) % D, c % D)
+    lengths = (len_ref[0], len_ref[1], len_ref[2])
+
+    tb = pl.multiple_of(c * cap_t + tblk * bt, bt)
+    tx = tx_ref[pl.ds(tb, bt)][:, None]
+    ty = ty_ref[pl.ds(tb, bt)][:, None]
+    tz = tz_ref[pl.ds(tb, bt)][:, None]
+    tp = tp_ref[pl.ds(tb, bt)][:, None]
+    if op == "density":
+        inv_h = 1.0 / tp  # empty slots: h = 1e30 -> ~0, W(inf) = 0
+    if exclude_self:
+        t_slot = tblk * bt + jax.lax.broadcasted_iota(jnp.int32, (bt, bc), 0)
+        c_lane = jax.lax.broadcasted_iota(jnp.int32, (bt, bc), 1)
+
+    def body(k, acc):
+        nbr = k // n_cb  # neighbour offset index 0..26; 13 is the centre
+        cblk = k % n_cb
+        offs = (nbr // 9 - 1, (nbr // 3) % 3 - 1, nbr % 3 - 1)
+        nb = []  # wrapped neighbour coordinate per axis
+        wrap = []  # -1/0/+1 when the neighbour crosses the low/high face
+        ok = True
+        for axis in range(3):
+            n = cell[axis] + offs[axis]
+            o = (n + D) // D - 1
+            nb.append(n - o * D)
+            wrap.append(o)
+            if not periodic[axis]:
+                ok = ok & (o == 0)
+        nc = (nb[0] * D + nb[1]) * D + nb[2]
+        cb = pl.multiple_of(nc * cap_c + cblk * bc, bc)
+        cand = []
+        for axis, ref in enumerate((cx_ref, cy_ref, cz_ref)):
+            v = ref[pl.ds(cb, bc)]
+            if periodic[axis]:
+                v = v + wrap[axis].astype(f32) * lengths[axis]
+            cand.append(v[None, :])
+        ddx = tx - cand[0]
+        ddy = ty - cand[1]
+        ddz = tz - cand[2]
+        d2 = ddx * ddx + ddy * ddy + ddz * ddz
+        if op == "count":
+            term = (d2 < tp).astype(f32)
+        else:
+            term = cubic_spline_w(jnp.sqrt(d2) * inv_h)
+            if cm_ref is not None:
+                term = term * cm_ref[pl.ds(cb, bc)][None, :]
+        keep = ok
+        if exclude_self:
+            keep = keep & ~((nbr == 13) & (t_slot == cblk * bc + c_lane))
+        if keep is True:
+            return acc + term
+        return acc + jnp.where(keep, term, f32(0.0))
+
+    acc = jax.lax.fori_loop(
+        jnp.int32(0), jnp.int32(27 * n_cb), body, jnp.zeros((bt, bc), f32)
+    )
+    tot = jnp.sum(acc, axis=1)
+    out_ref[pl.ds(tb, bt)] = tot.astype(jnp.int32) if op == "count" else tot
+
+
+@partial(jax.jit, static_argnames=(
+    "D", "cap_t", "cap_c", "periodic", "op", "exclude_self", "interpret"))
+def _call(lengths4, tgt, cand, cand_mass, *, D, cap_t, cap_c, periodic, op,
+          exclude_self, interpret):
+    n_cells = D * D * D
+    out_dtype = jnp.int32 if op == "count" else jnp.float32
+    args = (lengths4, *tgt, *cand) + (() if cand_mass is None else (cand_mass,))
+    bt, bc = min(cap_t, BLOCK), min(cap_c, BLOCK)
+    return pl.pallas_call(
+        partial(_kernel, D=D, cap_t=cap_t, cap_c=cap_c, bt=bt, bc=bc,
+                periodic=periodic, op=op, exclude_self=exclude_self),
+        out_shape=jax.ShapeDtypeStruct((n_cells * cap_t,), out_dtype),
+        grid=(n_cells, cap_t // bt),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=NUM_STAGES),
+        interpret=interpret,
+        name=f"cell_stencil_{op}",
+    )(*args)
+
+
+def stencil_pallas(
+    tgt: Sequence[jax.Array],  # (tx, ty, tz, r2|h), each (n_cells, cap_t)
+    cand: Sequence[jax.Array],  # (cx, cy, cz), each (n_cells, cap_c)
+    lengths,  # (3,) box lengths
+    periodic: Tuple[bool, bool, bool],
+    level: int,
+    op: str = "count",
+    exclude_self: bool = True,
+    cand_mass: Optional[jax.Array] = None,  # (n_cells, cap_c), 0 in empties
     *,
-    D: int,
-    cap: int,
-    zb_cells: int,
-):
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    Dp = jnp.int32(D + 2)
-    line = (D + 2) * cap  # lane offset between x, y, z sections
-
-    # Double-buffered column windows: each grid step waits on the DMAs its
-    # predecessor started for it and prefetches the next column, so the
-    # ~10-20us HBM copy latency overlaps compute instead of serializing
-    # (one DMA per x-offset; each copies 3 consecutive rows = the j-window).
-    t = i * jnp.int32(D) + j
-    slot = jax.lax.rem(t, 2)
-
-    def _copies(tt, sl):
-        ii = tt // jnp.int32(D)
-        jj = jax.lax.rem(tt, jnp.int32(D))
-        return [
-            pltpu.make_async_copy(
-                cand_hbm.at[pl.ds((ii + jnp.int32(dx)) * Dp + jj, 3)],
-                cw.at[sl, pl.ds(jnp.int32(3 * dx), 3)],
-                sems.at[sl, jnp.int32(dx)],
-            )
-            for dx in range(3)
-        ]
-
-    @pl.when(t == 0)
-    def _():
-        for d in _copies(t, slot):
-            d.start()
-
-    @pl.when(t + 1 < D * D)
-    def _():
-        for d in _copies(t + 1, jnp.int32(1) - slot):
-            d.start()
-
-    for d in _copies(t, slot):
-        d.wait()
-
-    T = zb_cells * cap  # targets per z-block
-    W = (zb_cells + 2) * cap  # candidate window
-    n_zb = D // zb_cells
-
-    for zb in range(n_zb):  # static unroll; offsets stay lane-aligned
-        toff = zb * T
-        tile = tgt_ref[0, pl.ds(toff, T), :]  # (T, 4) sublane-major
-        t_x = tile[:, 0:1]
-        t_y = tile[:, 1:2]
-        t_z = tile[:, 2:3]
-        t_r2 = tile[:, 3:4]
-        # accumulate hits in the full (T, W) tile and reduce over lanes
-        # ONCE per z-block — the per-window lane reduction would cost
-        # ~2 extra vector ops per element in the roofline-bound loop
-        acc = jnp.zeros((T, W), jnp.float32)
-        for k in range(9):
-            c_x = cw[slot, k, 0, pl.ds(toff, W)].reshape(1, W)
-            c_y = cw[slot, k, 0, pl.ds(line + toff, W)].reshape(1, W)
-            c_z = cw[slot, k, 0, pl.ds(2 * line + toff, W)].reshape(1, W)
-            ddx = t_x - c_x
-            ddy = t_y - c_y
-            ddz = t_z - c_z
-            d2 = ddx * ddx + ddy * ddy + ddz * ddz
-            acc = jnp.where(d2 < t_r2, acc + 1.0, acc)
-        out_ref[0, pl.ds(toff, T), :] = jnp.sum(acc, axis=1, keepdims=True)
-
-
-@partial(jax.jit, static_argnames=("D", "cap", "zb_cells", "interpret"))
-def _call(cand, tgt, D, cap, zb_cells, interpret):
-    Dp = D + 2
-    return pl.pallas_call(
-        partial(_kernel, D=D, cap=cap, zb_cells=zb_cells),
-        grid=(D, D),
-        in_specs=[
-            # keep the candidate grid in HBM: an ANY placement lets the
-            # compiler pick VMEM, where the row-window slice breaks
-            # sublane tiling (dim-1 slices must be multiples of 8)
-            pl.BlockSpec(memory_space=pltpu.HBM),
-            pl.BlockSpec(
-                (1, D * cap, 4), lambda i, j: (i * D + j, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, D * cap, 1), lambda i, j: (i * D + j, 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        out_shape=jax.ShapeDtypeStruct((D * D, D * cap, 1), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((2, 9, 1, 3 * Dp * cap), jnp.float32),
-            pltpu.SemaphoreType.DMA((2, 3)),
-        ],
-        # large caps (e.g. 256 at 4M particles) push the statically
-        # unrolled z-block temporaries past the default 16M scoped-vmem
-        # budget; v5e has 128MB of VMEM
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )(cand, tgt)
-
-
-# Half-stencil column directions: each unordered cell pair with column
-# offset (dx, dy) != (0, 0) appears in exactly one of these four (the
-# mirror set covers the other eight neighbors); (0, 0) pairs are halved
-# by the strict slot-order mask inside the kernel.
-_SYM_DIRS = ((0, 0), (0, 1), (1, -1), (1, 0), (1, 1))
-
-# Cross mode (disjoint target/candidate particle sets, e.g. two h-tiers):
-# every pair appears exactly once as (target in A, candidate in B), so the
-# FULL 27-neighborhood must be visited and no slot-order mask applies.
-_CROSS_DIRS = tuple(
-    (dxr, dyr) for dxr in (-1, 0, 1) for dyr in (-1, 0, 1)
-)
-
-
-def _check_colsum_size(D: int, cap: int, nd: int, limit=4 << 30):
-    """The candidate-side colsum output is (D*D, nd, (D+2)*cap) f32 in HBM
-    — nd ghost-padded copies of the ELL grid. At level 7 (D=128) with
-    cap 64 that is ~2.7GB (sym) / ~4.9GB (cross) per pass; past ~4GB the
-    allocation is hopeless on any current chip, so fail with a clear
-    message instead of an HBM OOM. Callers needing finer levels should
-    lower the cap or split the pass."""
-    bytes_ = D * D * nd * (D + 2) * cap * 4
-    if bytes_ > limit:
-        raise ValueError(
-            f"colsum buffer {bytes_ / 2**30:.1f}GB exceeds {limit / 2**30:.0f}GB "
-            f"(D={D}, cap={cap}, {nd} directions); lower the cap or use a "
-            "coarser level"
-        )
-
-
-def _cubic_spline_w(q):
-    """Unnormalized cubic-spline SPH kernel (models/sph.py contract).
-    q may be inf/NaN for invalid slots: both select the 0 branch."""
-    w1 = 1.0 - 1.5 * q * q * (1.0 - 0.5 * q)
-    w2 = 0.25 * (2.0 - q) ** 3
-    return jnp.where(q < 1.0, w1, jnp.where(q < 2.0, w2, 0.0))
-
-
-def _kernel_sym(
-    cand_hbm,  # (Dp*Dp, 1, S*Dp*cap) HBM candidate grid (x|y|z[|r2/h])
-    tgt_ref,  # (1, D*cap, 4) VMEM block: x,y,z,(r2|h) per target
-    out_ref,  # (1, D*cap, 1) VMEM block: target-side sums
-    *rest,  # len(dirs) colsum plane refs (1, 1, Dp*cap_c) + cw + sems
-    # each colsum plane d is PRE-ROLLED: its BlockSpec index_map points at
-    # the mirror column (i+dx, j+dy), so the XLA fold needs no jnp.roll
-    # relayouts — just elementwise adds + the z-ghost lane shifts
-    D: int,
-    cap: int,
-    zb_cells: int,
-    same_r2: bool,
-    op: str = "count",
-    cross: bool = False,
-    cap_c: int = 0,  # candidate-set ELL capacity; 0 = same as cap
-    with_mass: bool = False,  # density only: per-particle mass plane
-):
-    """Symmetric half-stencil: each unordered pair is evaluated ONCE.
-
-    op="count": the target side tests d2 < r2_t and accumulates per-target
-    row sums (out_ref); the candidate side tests d2 < r2_c (same compare
-    when same_r2) and accumulates per-candidate lane sums into per-dir
-    colsum planes whose output index maps already point at the mirror
-    column (_rolled_colsum_spec). This halves
-    the distance evaluations of the 27-point stencil (5 windows instead
-    of 9) at the cost of one extra lane-sum pass — the reference kernel's
-    symmetry rationale (find_neighbors.cuh:346-357 NcStats) realized in
-    dense-tile form. Exact for per-particle radii: both endpoints apply
-    their own radius to the same d2.
-
-    op="density": the 4th channel carries h instead of r2; each side
-    accumulates the cubic-spline weight W(sqrt(d2)/h_side) — the SPH
-    density interaction fused INTO the traversal, the TPU answer to the
-    reference emitting neighbor indices for a separate force loop
-    (find_neighbors.cuh:118): no index lists ever touch HBM. same_r2
-    mirrors its count meaning (uniform h skips the candidate h plane).
-    with_mass=True adds a per-particle mass: a 5th target channel m_t and
-    a final candidate mass section m_c; the target side accumulates
-    m_c * W(r/h_t) (rho_i sums m_j) and the candidate side m_t * W(r/h_c)
-    — the reference's per-particle m_j payload (find_neighbors.cuh:94-124).
-
-    cross=True: targets and candidates are DISJOINT particle sets packed
-    on the same grid (tgt_ref from set A, cand_hbm from set B — the
-    tiered adaptive-h decomposition). Each A-B pair appears exactly once,
-    so all 9 column windows run, the center slot-order mask is off, and
-    the candidate-side sums credit set B — one pass serves both tiers'
-    counts, at both tiers' own radii.
-    """
-    dirs = _CROSS_DIRS if cross else _SYM_DIRS
-    out2_refs = rest[: len(dirs)]
-    cw, sems = rest[len(dirs):]
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    Dp = jnp.int32(D + 2)
-    cap_c = cap_c or cap
-    line = (D + 2) * cap_c  # lane offset between x, y, z (, r2) sections
-    m_sec = 3 + (0 if same_r2 else 1)  # mass section index (with_mass)
-
-    t = i * jnp.int32(D) + j
-    slot = jax.lax.rem(t, 2)
-
-    # half stencil only needs the dx_rel in {0, +1} rows (2 DMAs per step
-    # of 3 consecutive y-rows each); cross mode visits all 3 x-rows
-    dxis = (0, 1, 2) if cross else (1, 2)
-    k0 = 0 if cross else 1  # cw row-block of padded x-row ii+dxi
-
-    def _copies(tt, sl):
-        ii = tt // jnp.int32(D)
-        jj = jax.lax.rem(tt, jnp.int32(D))
-        return [
-            pltpu.make_async_copy(
-                cand_hbm.at[pl.ds((ii + jnp.int32(dxi)) * Dp + jj, 3)],
-                cw.at[sl, pl.ds(jnp.int32(3 * (dxi - k0)), 3)],
-                sems.at[sl, jnp.int32(dxi - k0)],
-            )
-            for dxi in dxis
-        ]
-
-    @pl.when(t == 0)
-    def _():
-        for d in _copies(t, slot):
-            d.start()
-
-    @pl.when(t + 1 < D * D)
-    def _():
-        for d in _copies(t + 1, jnp.int32(1) - slot):
-            d.start()
-
-    for d in _copies(t, slot):
-        d.wait()
-
-    T = zb_cells * cap  # targets per z-block
-    W = (zb_cells + 2) * cap_c  # candidate window
-    n_zb = D // zb_cells
-
-    # strict slot order for the center column: candidate's padded column
-    # slot (toff + lane) > target's (toff + cap + sublane) — toff cancels,
-    # so the mask is one static tile (non-cross only, where cap_c == cap)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (T, W), 1)
-    sub = jax.lax.broadcasted_iota(jnp.int32, (T, W), 0)
-    center_mask = (lane > sub + cap).astype(jnp.float32)
-
-    for r in out2_refs:
-        r[...] = jnp.zeros((1, 1, (D + 2) * cap_c), jnp.float32)
-
-    for zb in range(n_zb):  # static unroll; offsets stay lane-aligned
-        toff_t = zb * T
-        toff = zb * zb_cells * cap_c  # candidate-buffer window offset
-        tile = tgt_ref[0, pl.ds(toff_t, T), :]  # (T, 4|5) sublane-major
-        t_x = tile[:, 0:1]
-        t_y = tile[:, 1:2]
-        t_z = tile[:, 2:3]
-        t_r2 = tile[:, 3:4]  # r2 (count) or h (density)
-        if with_mass:
-            t_m = tile[:, 4:5]
-        if op == "density":
-            t_invh = 1.0 / t_r2  # invalid slots: h=1e30 -> ~0, W -> 0
-        acc = jnp.zeros((T, W), jnp.float32)
-        for di, (dxr, dyr) in enumerate(dirs):
-            k = 3 * (dxr + 1 - k0) + (dyr + 1)
-            c_x = cw[slot, k, 0, pl.ds(toff, W)].reshape(1, W)
-            c_y = cw[slot, k, 0, pl.ds(line + toff, W)].reshape(1, W)
-            c_z = cw[slot, k, 0, pl.ds(2 * line + toff, W)].reshape(1, W)
-            ddx = t_x - c_x
-            ddy = t_y - c_y
-            ddz = t_z - c_z
-            d2 = ddx * ddx + ddy * ddy + ddz * ddz
-            if op == "count":
-                hits_t = (d2 < t_r2).astype(jnp.float32)
-                if same_r2:
-                    hits_c = hits_t
-                else:
-                    c_r2 = cw[slot, k, 0,
-                              pl.ds(3 * line + toff, W)].reshape(1, W)
-                    hits_c = (d2 < c_r2).astype(jnp.float32)
-            else:
-                r = jnp.sqrt(d2)
-                hits_t = _cubic_spline_w(r * t_invh)
-                if same_r2:
-                    hits_c = hits_t
-                else:
-                    c_h = cw[slot, k, 0,
-                             pl.ds(3 * line + toff, W)].reshape(1, W)
-                    hits_c = _cubic_spline_w(r * (1.0 / c_h))
-            if (dxr, dyr) == (0, 0) and not cross:
-                hits_t = hits_t * center_mask
-                if not same_r2:
-                    hits_c = hits_c * center_mask
-                else:
-                    hits_c = hits_t
-            if op == "density" and with_mass:
-                # mass AFTER the center mask: the kernel weights are
-                # symmetric per-pair, the mass factors are not
-                c_m = cw[slot, k, 0,
-                         pl.ds(m_sec * line + toff, W)].reshape(1, W)
-                hits_t = hits_t * c_m
-                hits_c = hits_c * t_m
-            acc = acc + hits_t
-            out2_refs[di][0, 0, pl.ds(toff, W)] = (
-                out2_refs[di][0, 0, pl.ds(toff, W)]
-                + jnp.sum(hits_c, axis=0)
-            )
-        out_ref[0, pl.ds(toff_t, T), :] = jnp.sum(acc, axis=1, keepdims=True)
-
-
-@partial(jax.jit, static_argnames=(
-    "D", "cap", "zb_cells", "same_r2", "interpret", "op", "cross",
-    "with_mass"))
-def _call_sym(cand, tgt, D, cap, zb_cells, same_r2, interpret, op="count",
-              cross=False, with_mass=False):
-    Dp = D + 2
-    S = (3 if same_r2 else 4) + (1 if with_mass else 0)
-    C = 5 if with_mass else 4  # target channels
-    dirs = _CROSS_DIRS if cross else _SYM_DIRS
-    nb = 3 if cross else 2  # x-row blocks resident per window set
-    return pl.pallas_call(
-        partial(_kernel_sym, D=D, cap=cap, zb_cells=zb_cells,
-                same_r2=same_r2, op=op, cross=cross, with_mass=with_mass),
-        grid=(D, D),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.HBM),
-            pl.BlockSpec(
-                (1, D * cap, C), lambda i, j: (i * D + j, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (1, D * cap, 1), lambda i, j: (i * D + j, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ] + [
-            _rolled_colsum_spec(D, Dp * cap, dx, dy) for dx, dy in dirs
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((D * D, D * cap, 1), jnp.float32),
-        ] + [
-            jax.ShapeDtypeStruct((D * D, 1, Dp * cap), jnp.float32)
-            for _ in dirs
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, 3 * nb, 1, S * Dp * cap), jnp.float32),
-            pltpu.SemaphoreType.DMA((2, nb)),
-        ],
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )(cand, tgt)
-
-
-def _rolled_colsum_spec(D: int, width: int, dx: int, dy: int) -> pl.BlockSpec:
-    """BlockSpec placing grid step (i, j)'s direction-(dx, dy) column sums
-    at the MIRROR column's block (i+dx mod D, j+dy mod D) — the roll of
-    the fold performed by the output index map instead of a jnp.roll
-    relayout pass. Each block is written by exactly one step (the map is a
-    bijection per direction)."""
-    def idx(i, j):
-        return (((i + dx + D) % D) * D + ((j + dy + D) % D), 0, 0)
-
-    return pl.BlockSpec((1, 1, width), idx, memory_space=pltpu.VMEM)
-
-
-def stencil_counts_pallas_sym(
-    px: jax.Array,  # (n_cells, cap) ELL coords, row-major cell order
-    py: jax.Array,
-    pz: jax.Array,
-    r2: jax.Array,  # (n_cells, cap); < 0 marks invalid targets
-    valid: jax.Array,  # (n_cells, cap)
-    lengths,
-    periodic: Tuple[bool, bool, bool],
-    level: int,
-    zb_cells: int = 0,
-    same_r2: bool = False,
     interpret: bool = False,
 ) -> jax.Array:
-    """(n_cells, cap) exact neighbor counts via the symmetric half-stencil.
+    """(n_cells, cap_t) target-side stencil sums on the Triton route:
+    int32 counts for op="count", float32 sums for op="density".
 
-    Same contract as stencil_counts_pallas, ~1.9x fewer distance
-    evaluations. same_r2=True asserts all valid slots share one radius
-    (skips the candidate-side compare and the packed r2 plane). Unlike the
-    asymmetric kernel the self-pair is never counted, so no correction is
-    applied here.
-
-    Caveat: pairs that cross a periodic boundary are evaluated in ONE
-    orientation, so the ghost-image rounding (c-L here vs t+L in the
-    mirror orientation) can differ from the one-sided kernels by 1 ulp of
-    d2 — measured 4 count flips in 2.1M slots at 1M uniform particles,
-    only on pairs whose distance sits exactly on the radius threshold.
-    Same class of reassociation freedom the reference accepts between its
-    CPU and GPU paths.
+    Both capacities are padded to powers of two (Triton block shapes);
+    padded target slots are empty (r2 = -1, h = 1e30), padded candidate
+    slots sit at INVALID_COORD with zero mass; capacities above BLOCK are
+    walked in BLOCK-wide tiles. The grid must be at least 4 cells per dim
+    (level >= 2) so the 27 neighbours are distinct.
     """
+    if op not in ("count", "density"):
+        raise ValueError(f"unknown stencil op {op!r}")
     D = 1 << int(level)
-    cap = px.shape[1]
-    if zb_cells == 0:
-        for zb in range(1, D + 1):
-            if D % zb == 0 and (zb * cap) % 128 == 0:
-                zb_cells = zb
-                break
-        else:
-            raise ValueError(
-                f"no lane-aligned z-block for D={D}, cap={cap}; "
-                "use the XLA stencil instead"
-            )
-    assert (zb_cells * cap) % 128 == 0, "z-block must be lane-aligned"
-    assert D % zb_cells == 0
-    _check_colsum_size(D, cap, len(_SYM_DIRS))
-    shp = (D, D, D, cap)
-    cand = pad_cell_grid(
-        px.reshape(shp), py.reshape(shp), pz.reshape(shp),
-        valid.reshape(shp), lengths, periodic,
-        extra=None if same_r2 else r2.reshape(shp),
+    tx, ty, tz, tp = tgt
+    n_cells, cap_t = tx.shape
+    cap_c = cand[0].shape[1]
+    if exclude_self and cap_t != cap_c:
+        raise ValueError("exclude_self needs targets and candidates from one pack")
+    pt, pc = _next_pow2(cap_t), _next_pow2(cap_c)
+
+    def pad(a, width, fill):
+        a = a.astype(jnp.float32)
+        if width > a.shape[1]:
+            a = jnp.pad(a, ((0, 0), (0, width - a.shape[1])),
+                        constant_values=fill)
+        return a.reshape(-1)
+
+    tp_fill = -1.0 if op == "count" else float(INVALID_COORD)
+    tgt_f = tuple(pad(a, pt, INVALID_COORD) for a in (tx, ty, tz)) + (
+        pad(tp, pt, tp_fill),)
+    cand_f = tuple(pad(a, pc, INVALID_COORD) for a in cand)
+    mass_f = None if cand_mass is None else pad(cand_mass, pc, 0.0)
+    lengths4 = jnp.concatenate(
+        [jnp.asarray(lengths, jnp.float32).reshape(3),
+         jnp.zeros((1,), jnp.float32)])
+    out = _call(
+        lengths4, tgt_f, cand_f, mass_f, D=D, cap_t=pt, cap_c=pc,
+        periodic=tuple(bool(p) for p in periodic), op=op,
+        exclude_self=bool(exclude_self), interpret=bool(interpret),
     )
-    tgt = jnp.stack(
-        [px.astype(jnp.float32), py.astype(jnp.float32),
-         pz.astype(jnp.float32), r2.astype(jnp.float32)], axis=-1
-    ).reshape(D * D, D * cap, 4)
-
-    prev_x64 = jax.config.jax_enable_x64
-    try:
-        if prev_x64:
-            jax.config.update("jax_enable_x64", False)
-        counts_t, *colplanes = _call_sym(
-            cand, tgt, D=D, cap=cap, zb_cells=int(zb_cells),
-            same_r2=bool(same_r2), interpret=interpret,
-        )
-    finally:
-        if prev_x64:
-            jax.config.update("jax_enable_x64", True)
-
-    total = _fold_sym(counts_t, colplanes, D, cap)
-    return total.reshape(-1, cap).astype(jnp.int32)
-
-
-@partial(jax.jit, static_argnames=(
-    "D", "cap_t", "cap_c", "zb_cells", "interpret", "op"))
-def _call_sym_cross(cand, tgt, D, cap_t, cap_c, zb_cells, interpret,
-                    op="count"):
-    Dp = D + 2
-    return pl.pallas_call(
-        partial(_kernel_sym, D=D, cap=cap_t, zb_cells=zb_cells,
-                same_r2=False, op=op, cross=True, cap_c=cap_c),
-        grid=(D, D),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.HBM),
-            pl.BlockSpec(
-                (1, D * cap_t, 4), lambda i, j: (i * D + j, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (1, D * cap_t, 1), lambda i, j: (i * D + j, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ] + [
-            _rolled_colsum_spec(D, Dp * cap_c, dx, dy)
-            for dx, dy in _CROSS_DIRS
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((D * D, D * cap_t, 1), jnp.float32),
-        ] + [
-            jax.ShapeDtypeStruct((D * D, 1, Dp * cap_c), jnp.float32)
-            for _ in _CROSS_DIRS
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, 9, 1, 4 * Dp * cap_c), jnp.float32),
-            pltpu.SemaphoreType.DMA((2, 3)),
-        ],
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )(cand, tgt)
-
-
-def _fold_sym(out_t, planes, D: int, cap: int) -> jax.Array:
-    """Combine target-side sums with the candidate-side column-sum planes.
-
-    The (i+dx, j+dy) mirror-column roll already happened in the kernel's
-    output index maps (_rolled_colsum_spec) — x/y wrap rides the rem in
-    the index map, and is correct for open boundaries too because
-    ghost-column hits are zero there. What remains here: ghost z lanes
-    wrap onto the real ends (zeros for open boundaries), then everything
-    sums in one fused elementwise pass. Returns (D*D, D*cap) f32 totals.
-    """
-    Dc = D * cap
-    total = out_t.reshape(D * D, Dc)
-    zpad = jnp.zeros((D * D, Dc - cap), jnp.float32)
-    for col in planes:
-        col = col.reshape(D * D, -1)  # (D*D, (D+2)*cap), pre-rolled
-        mid = col[:, cap:cap + Dc]
-        front = col[:, :cap]  # ghost z = -1 -> real z = D-1
-        back = col[:, cap + Dc:]  # ghost z = D -> real z = 0
-        mid = mid + jnp.concatenate([back, zpad], axis=1)
-        mid = mid + jnp.concatenate([zpad, front], axis=1)
-        total = total + mid
-    return total
-
-
-def stencil_counts_pallas_cross(
-    tgt_arrays,  # (px, py, pz, r2): (n_cells, cap_t) ELL of particle set A
-    cand_arrays,  # (px, py, pz, r2): (n_cells, cap_c) ELL of particle set B
-    cand_valid: jax.Array,  # (n_cells, cap_c)
-    lengths,
-    periodic: Tuple[bool, bool, bool],
-    level: int,
-    zb_cells: int = 0,
-    op: str = "count",
-    interpret: bool = False,
-) -> Tuple[jax.Array, jax.Array]:
-    """Cross-set pass: counts (or density sums, op="density") between two
-    DISJOINT particle sets packed on the same row-major grid — the
-    cross-tier leg of the adaptive-h decomposition (the regime the
-    reference's warp-BFS kernel handles with per-node opening,
-    find_neighbors.cuh:46-75). One kernel pass returns BOTH sides:
-    (target-side results on A's ELL layout, candidate-side results on B's
-    ELL layout). The 4th channel is r2 for counts, h for density.
-    """
-    tpx, tpy, tpz, tex = tgt_arrays
-    cpx, cpy, cpz, cex = cand_arrays
-    D = 1 << int(level)
-    cap_t = tpx.shape[1]
-    cap_c = cpx.shape[1]
-    if zb_cells == 0:
-        for zb in range(1, D + 1):
-            if D % zb == 0 and (zb * cap_t) % 128 == 0 and (zb * cap_c) % 128 == 0:
-                zb_cells = zb
-                break
-        else:
-            raise ValueError(f"no lane-aligned z-block for D={D}, caps "
-                             f"{cap_t}/{cap_c}")
-    assert (zb_cells * cap_t) % 128 == 0 and (zb_cells * cap_c) % 128 == 0
-    assert D % zb_cells == 0
-    _check_colsum_size(D, cap_c, len(_CROSS_DIRS))
-    shp_c = (D, D, D, cap_c)
-    cand = pad_cell_grid(
-        cpx.reshape(shp_c), cpy.reshape(shp_c), cpz.reshape(shp_c),
-        cand_valid.reshape(shp_c), lengths, periodic,
-        extra=cex.reshape(shp_c),
-        extra_fill=float(INVALID_COORD) if op == "density" else -1.0,
-    )
-    tgt = jnp.stack(
-        [a.astype(jnp.float32) for a in (tpx, tpy, tpz, tex)], axis=-1
-    ).reshape(D * D, D * cap_t, 4)
-
-    prev_x64 = jax.config.jax_enable_x64
-    try:
-        if prev_x64:
-            jax.config.update("jax_enable_x64", False)
-        out_t, *colplanes = _call_sym_cross(
-            cand, tgt, D=D, cap_t=cap_t, cap_c=cap_c,
-            zb_cells=int(zb_cells), interpret=interpret, op=op,
-        )
-    finally:
-        if prev_x64:
-            jax.config.update("jax_enable_x64", True)
-
-    res_a = out_t.reshape(-1, cap_t)
-    zero_b = jnp.zeros((D * D, D * cap_c), jnp.float32)
-    res_b = _fold_sym(zero_b, colplanes, D, cap_c)
-    if op == "count":
-        res_a = res_a.astype(jnp.int32)
-        res_b = res_b.astype(jnp.int32)
-    return res_a, res_b.reshape(-1, cap_c)
-
-
-def stencil_density_pallas_sym(
-    px: jax.Array,  # (n_cells, cap) ELL coords, row-major cell order
-    py: jax.Array,
-    pz: jax.Array,
-    ph: jax.Array,  # (n_cells, cap) smoothing lengths (INVALID in empties)
-    valid: jax.Array,  # (n_cells, cap)
-    lengths,
-    periodic: Tuple[bool, bool, bool],
-    level: int,
-    zb_cells: int = 0,
-    same_h: bool = False,
-    interpret: bool = False,
-    pm: jax.Array = None,  # (n_cells, cap) per-particle masses (optional)
-) -> jax.Array:
-    """(n_cells, cap) unnormalized SPH spline sums S_i = sum_j W(r_ij/h_i)
-    over j != i, fused into the symmetric half-stencil (op="density") —
-    the interaction runs INSIDE the traversal like the reference's warp
-    kernel applies its per-pair op (find_neighbors.cuh:94-124), instead of
-    emitting neighbor-index lists to HBM. Caller adds the self term W(0)
-    and the (m / pi h^3) normalization. same_h=True skips the candidate-h
-    plane when all valid h are equal. With `pm`, each term is weighted by
-    the NEIGHBOR's mass: S_i = sum_j m_j W(r_ij/h_i) (the reference's
-    per-particle m_j payload); the caller's self term becomes m_i.
-    """
-    D = 1 << int(level)
-    cap = px.shape[1]
-    if zb_cells == 0:
-        for zb in range(1, D + 1):
-            if D % zb == 0 and (zb * cap) % 128 == 0:
-                zb_cells = zb
-                break
-        else:
-            raise ValueError(
-                f"no lane-aligned z-block for D={D}, cap={cap}"
-            )
-    assert (zb_cells * cap) % 128 == 0 and D % zb_cells == 0
-    _check_colsum_size(D, cap, len(_SYM_DIRS))
-    shp = (D, D, D, cap)
-    with_mass = pm is not None
-    cand = pad_cell_grid(
-        px.reshape(shp), py.reshape(shp), pz.reshape(shp),
-        valid.reshape(shp), lengths, periodic,
-        extra=None if same_h else ph.reshape(shp),
-        extra_fill=float(INVALID_COORD),
-        extra2=pm.reshape(shp) if with_mass else None,
-        extra2_fill=0.0,
-    )
-    cols = [px.astype(jnp.float32), py.astype(jnp.float32),
-            pz.astype(jnp.float32), ph.astype(jnp.float32)]
-    if with_mass:
-        cols.append(pm.astype(jnp.float32))
-    tgt = jnp.stack(cols, axis=-1).reshape(D * D, D * cap, len(cols))
-
-    prev_x64 = jax.config.jax_enable_x64
-    try:
-        if prev_x64:
-            jax.config.update("jax_enable_x64", False)
-        w_t, *colplanes = _call_sym(
-            cand, tgt, D=D, cap=cap, zb_cells=int(zb_cells),
-            same_r2=bool(same_h), interpret=interpret, op="density",
-            with_mass=with_mass,
-        )
-    finally:
-        if prev_x64:
-            jax.config.update("jax_enable_x64", True)
-
-    return _fold_sym(w_t, colplanes, D, cap).reshape(-1, cap)
-
-
-def stencil_counts_pallas(
-    px: jax.Array,  # (n_cells, cap) ELL coords, row-major cell order
-    py: jax.Array,
-    pz: jax.Array,
-    r2: jax.Array,  # (n_cells, cap); < 0 marks invalid targets
-    valid: jax.Array,  # (n_cells, cap)
-    lengths,
-    periodic: Tuple[bool, bool, bool],
-    level: int,
-    zb_cells: int = 0,
-    interpret: bool = False,
-) -> jax.Array:
-    """(n_cells, cap) exact neighbor counts — Pallas TPU fast path."""
-    D = 1 << int(level)
-    cap = px.shape[1]
-    if zb_cells == 0:
-        for zb in range(1, D + 1):
-            if D % zb == 0 and (zb * cap) % 128 == 0:
-                zb_cells = zb
-                break
-        else:
-            raise ValueError(
-                f"no lane-aligned z-block for D={D}, cap={cap}; "
-                "use the XLA stencil instead"
-            )
-    assert (zb_cells * cap) % 128 == 0, "z-block must be lane-aligned"
-    assert D % zb_cells == 0
-    shp = (D, D, D, cap)
-    cand = pad_cell_grid(
-        px.reshape(shp), py.reshape(shp), pz.reshape(shp),
-        valid.reshape(shp), lengths, periodic,
-    )
-    tgt = jnp.stack(
-        [px.astype(jnp.float32), py.astype(jnp.float32),
-         pz.astype(jnp.float32), r2.astype(jnp.float32)], axis=-1
-    ).reshape(D * D, D * cap, 4)
-
-    prev_x64 = jax.config.jax_enable_x64
-    try:
-        if prev_x64:
-            jax.config.update("jax_enable_x64", False)
-        counts = _call(
-            cand, tgt, D=D, cap=cap,
-            zb_cells=int(zb_cells), interpret=interpret,
-        )
-    finally:
-        if prev_x64:
-            jax.config.update("jax_enable_x64", True)
-
-    counts = counts.reshape(-1, cap).astype(jnp.int32)
-    # remove the self-pair every valid target counted (d2 = 0 < r2)
-    counts = counts - (valid & (r2 > 0)).astype(jnp.int32)
-    return counts
+    return out.reshape(n_cells, pt)[:, :cap_t]

@@ -1,6 +1,6 @@
 """Peer-local communication primitives: particle exchange, range queries.
 
-TPU-native replacement for the reference's sparse MPI point-to-point
+JAX replacement for the reference's sparse MPI point-to-point
 protocols (reference: domain/domaindecomp_mpi.hpp:104-158 exchangeParticles,
 domain/exchange_keys.hpp:63-119 exchangeRequestKeys, halos/
 exchange_halos.hpp:28-93, focus/exchange_focus.hpp:290-344
@@ -312,7 +312,7 @@ def range_count_service(
 ) -> Tuple[jax.Array, jax.Array]:
     """Exact particle counts of key ranges owned by other ranks.
 
-    The TPU analog of the focus tree's peer count exchange
+    The JAX analog of the focus tree's peer count exchange
     (octree_focus_mpi.hpp:205-273 updateCounts + exchange_focus.hpp
     exchangeTreeletGeneral): every rank asks each range's owner to count it
     against the owner's sorted particle keys — two exchange rounds. With

@@ -1,6 +1,6 @@
 """Mesh-global bounding box and octree build.
 
-TPU-native equivalents of the reference's MPI-global operations:
+JAX equivalents of the reference's MPI-global operations:
   - makeGlobalBox: per-dim min/max + MPI_Allreduce(MIN) with sign flip
     (reference: include/cstone/sfc/box_mpi.hpp:85-119) -> lax.pmin/pmax
   - updateOctreeGlobal: local rebalance+count then MPI_Allreduce(SUM) of

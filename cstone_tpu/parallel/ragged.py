@@ -3,7 +3,7 @@
 The dense protocols in parallel/exchange.py move (n_ranks, cap) buffers —
 per-rank memory O(R * cap) with mostly-empty lanes when the peer set is
 small. The reference bounds all P2P traffic by the discovered SFC-surface
-peer set (peers.hpp:63-117, exchange_focus.hpp:62-96); the TPU-native
+peer set (peers.hpp:63-117, exchange_focus.hpp:62-96); the collective
 equivalent of "send only to peers, sized exactly" is the ragged all-to-all
 collective: one concatenated operand sorted by destination rank, per-rank
 offset/size vectors, and buffers sized by the MEASURED surface total —
@@ -58,21 +58,18 @@ def _a2a(x: jax.Array, axis_name: Optional[str]) -> jax.Array:
     return jax.lax.all_to_all(x, axis_name, split_axis=0, concat_axis=0, tiled=True)
 
 
-def _use_native_ragged() -> bool:
-    """The ragged-all-to-all HLO is unimplemented on XLA:CPU (the virtual
-    test mesh and the driver's multichip dryrun); there a dense-padded
-    emulation with identical semantics stands in. Only TPU backends are
-    known to lower the native collective, so everything else (cpu, gpu,
-    unknown plugins) takes the emulation; CSTONE_RAGGED=native|emulate
-    overrides (the escape hatch either way)."""
+def use_native_ragged() -> bool:
+    """Whether the ragged protocols run the native ragged_all_to_all.
+
+    Only with CSTONE_RAGGED=native. XLA:CPU does not implement the HLO
+    (the virtual test mesh and the multichip dry run). XLA's GPU backend
+    lowers it, and it matches the emulation in
+    tests/test_exchange_ragged.py on four GPUs, but Domain.sync has not
+    yet run it at scale, so every platform takes the dense-padded
+    emulation below by default, which has identical semantics."""
     import os
 
-    mode = os.environ.get("CSTONE_RAGGED", "")
-    if mode == "native":
-        return True
-    if mode == "emulate":
-        return False
-    return jax.default_backend() == "tpu"
+    return os.environ.get("CSTONE_RAGGED", "") == "native"
 
 
 def _ragged_a2a(
@@ -91,10 +88,13 @@ def _ragged_a2a(
     (R, out_cap) buffer, one all_to_all moves it, and each received chunk
     lands at the offset its SENDER specified (output_offsets travels with
     the data, exactly the native op's contract)."""
-    if _use_native_ragged():
+    if use_native_ragged():
+        # the collective needs all four offset/size vectors of one type
         return jax.lax.ragged_all_to_all(
-            operand, output, input_offsets, send_sizes, output_offsets,
-            recv_sizes, axis_name=axis_name,
+            operand, output,
+            *(a.astype(jnp.int32) for a in (
+                input_offsets, send_sizes, output_offsets, recv_sizes)),
+            axis_name=axis_name,
         )
     out_cap = output.shape[0]
     R = send_sizes.shape[0]

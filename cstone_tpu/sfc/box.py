@@ -1,6 +1,6 @@
 """Coordinate bounding boxes with periodic-boundary support.
 
-TPU-native re-design of the reference's Box/IBox (reference:
+JAX re-design of the reference's Box/IBox (reference:
 include/cstone/sfc/box.hpp). `Box` is a JAX pytree: its float limits are
 traced leaves so per-step box updates never trigger recompilation, while
 the boundary types are static aux data (they are simulation constants).

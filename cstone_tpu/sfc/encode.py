@@ -1,6 +1,6 @@
 """Unified SFC key API: float coordinates -> Morton/Hilbert keys and back.
 
-TPU-native equivalent of the reference's sfc.hpp + sfc_gpu.cu (reference:
+JAX equivalent of the reference's sfc.hpp + sfc_gpu.cu (reference:
 include/cstone/sfc/sfc.hpp:157-292, sfc_gpu.cu:39-77). The batch encode is
 one fused elementwise pipeline over the full coordinate arrays; the default
 curve is Hilbert, like the reference (sfc.hpp:55).

@@ -1,10 +1,10 @@
-"""3D Hilbert encoding/decoding in 32- and 64-bit, vectorized for TPU lanes.
+"""3D Hilbert encoding/decoding in 32- and 64-bit, vectorized over whole arrays.
 
 Produces keys identical to the reference's GOTHIC-derived curve
 (reference: include/cstone/sfc/hilbert.hpp), re-designed as a fixed-trip
 `lax.fori_loop` over levels where every iteration is pure elementwise
-integer math over the whole coordinate array (VPU-friendly; no lookup
-tables, no per-element control flow).
+integer math over the whole coordinate array (no lookup tables, no
+per-element control flow).
 """
 
 from __future__ import annotations

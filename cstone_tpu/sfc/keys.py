@@ -1,6 +1,6 @@
 """Key-generic SFC operations, independent of the curve type.
 
-TPU-native, vectorized re-design of the reference's key math
+Vectorized JAX re-design of the reference's key math
 (reference: include/cstone/sfc/common.hpp). All functions operate
 elementwise on jnp arrays of dtype uint32 or uint64 and are jit-safe.
 
@@ -307,7 +307,7 @@ def octal_power(dtype, pos) -> jax.Array:
 # ----------------------------------------------------------------------------
 #
 # The reference emits, for a key interval [a, b), the minimal sequence of
-# cornerstone node start keys covering it. The TPU formulation computes, for
+# cornerstone node start keys covering it. The JAX formulation computes, for
 # each octal place, how many digits are emitted (a fixed 2*maxLevel-entry
 # per-place count vector), so count and emission are both static-shaped.
 

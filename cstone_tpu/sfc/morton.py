@@ -1,8 +1,8 @@
-"""3D Morton encoding/decoding in 32- and 64-bit, vectorized for TPU lanes.
+"""3D Morton encoding/decoding in 32- and 64-bit, vectorized over whole arrays.
 
 Bit-for-bit compatible with the reference's magic-number method
 (reference: include/cstone/sfc/morton.hpp), but expressed as elementwise
-jnp ops over whole coordinate arrays so XLA maps them onto the VPU.
+jnp ops over whole coordinate arrays that XLA fuses into one pass.
 """
 
 from __future__ import annotations

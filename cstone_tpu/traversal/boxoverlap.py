@@ -1,6 +1,6 @@
 """Box overlap / distance math for tree traversals, vectorized.
 
-TPU-native equivalent of the reference's overlap tests (reference:
+JAX equivalent of the reference's overlap tests (reference:
 include/cstone/traversal/boxoverlap.hpp). All functions operate on batches
 of boxes/points at once.
 """

@@ -1,7 +1,7 @@
 """Dense cell-list neighbor search: ELL-packed grid bins + 27-point stencil.
 
-TPU-first fast path for fixed-radius neighbor search, replacing per-group
-tree/grid traversal with fully regular dataflow (reference semantics:
+Fast path for fixed-radius neighbor search, replacing per-group tree/grid
+traversal with fully regular dataflow (reference semantics:
 findneighbors.hpp:96-165 and traversal/find_neighbors.cuh:200-343 — same
 neighbor definition, different algorithm). Exploits three structural
 facts:
@@ -11,15 +11,16 @@ facts:
   2. SFC-sorted particles are contiguous per grid cell, so binning is a
      row-gather, not a scatter;
   3. packing the bins in ROW-MAJOR grid order makes "adjacent cell" a
-     constant array shift: the whole 27-cell stencil becomes jnp.roll
-     slices — zero gathers and zero irregular control flow in the hot
-     loop, which XLA fuses into dense VPU work.
+     constant index shift, so the 27-cell stencil is regular work with no
+     neighbour lists.
 
-Periodic boundaries are handled by adding +-L to the rolled-in candidate
-coordinates (the roll IS the wrap); open/fixed boundaries mask the
-rolled-in rows instead. Self-pairs are excluded by slot identity in the
-(0,0,0) pass, matching the reference's i != j rule — coincident points
-still count each other.
+The stencil itself has two implementations with one contract: the Pallas
+kernel (ops/pallas_stencil.py) and the plain XLA roll stencil
+(stencil_xla), which is also the kernel's reference; choose_stencil picks
+one by platform. Periodic boundaries add +-L to the wrapped candidate
+coordinates; open boundaries mask the wrapped cells. Self-pairs are
+excluded by slot identity in the centre cell, matching the reference's
+i != j rule — coincident points still count each other.
 
 The ELL capacity ``cap`` bounds per-cell occupancy; cells with more
 particles raise the overflow flag and the caller retries with a larger
@@ -28,23 +29,27 @@ cap (reference analog: util/reallocate.hpp growth loops).
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..ops.pallas_stencil import INVALID_COORD
+from ..ops.primitives import cubic_spline_w
 from ..sfc.box import Box
 from ..sfc.encode import HILBERT
 from ..sfc.keys import max_tree_level
-from .cover import build_cell_table
 
 __all__ = [
     "choose_cell_level",
+    "default_cell_cap",
     "rowmajor_cell_perm",
-    "ell_pack",
-    "stencil_neighbor_counts",
+    "ell_pack_gather",
+    "stencil_xla",
+    "choose_stencil",
     "cell_list_neighbor_counts",
     "cell_list_sph_density",
 ]
@@ -65,6 +70,19 @@ def choose_cell_level(box: Box, h_max: float, ext: float = 1.0, max_level: int =
         return max_level
     level = int(np.floor(np.log2(min_side / r))) if r < min_side else 0
     return max(2, min(max_level, level))
+
+
+def default_cell_cap(n: int, level: int, snapshots: int = 1) -> int:
+    """ELL capacity covering the Poisson occupancy tail of n uniform
+    particles on the level-`level` grid. Extreme-value sizing: E[max over
+    C cells and `snapshots` density snapshots] ~ mean + sqrt(2 ln(C *
+    snapshots) * mean); add ~1 sigma + 6 margin. Rounded up to a multiple
+    of 64 (64 at 1M particles on level 5). Overflow is flagged and the
+    caller grows the cap, so a tight default is safe."""
+    n_cells = float(1 << (3 * level)) * max(1, snapshots)
+    mean = n / float(1 << (3 * level))
+    cap = mean + math.sqrt(2.0 * math.log(n_cells) * mean) + 6.0
+    return max(64, int(-(-cap // 64) * 64))
 
 
 def _np_hilbert_cell(ix, iy, iz, level: int) -> np.ndarray:
@@ -131,99 +149,6 @@ def rowmajor_cell_perm(level: int, curve: str = HILBERT) -> Tuple[jax.Array, jax
     return jnp.asarray(perm), jnp.asarray(inv)
 
 
-def ell_pack(
-    offsets: jax.Array,  # (n_cells+1,) from build_cell_table (SFC cell order)
-    perm: jax.Array,  # (n_cells,) row-major -> SFC cell index
-    arrays: Tuple[jax.Array, ...],  # (n,) sorted particle fields
-    cap: int,
-) -> Tuple[Tuple[jax.Array, ...], jax.Array, jax.Array]:
-    """Pack per-cell particle runs into (n_cells, cap) ELL rows in
-    row-major cell order. Returns (packed arrays, valid mask, overflow).
-    """
-    n = arrays[0].shape[0]
-    starts = offsets[perm]  # (n_cells,)
-    counts = offsets[perm + 1] - starts
-    j = jnp.arange(cap, dtype=jnp.int32)
-    idx = starts[:, None] + j[None, :]
-    valid = j[None, :] < counts[:, None]
-    idx = jnp.where(valid, idx, 0)
-    # one stacked row-gather instead of len(arrays) element gathers — XLA
-    # TPU gathers cost per *index*, so fetching all fields per index is
-    # measurably cheaper than separate gathers
-    if len(arrays) > 1 and all(a.dtype == arrays[0].dtype for a in arrays):
-        stacked = jnp.stack(arrays, axis=-1)[idx]  # (n_cells, cap, F)
-        packed = tuple(stacked[..., f] for f in range(len(arrays)))
-    else:
-        packed = tuple(a[idx] for a in arrays)
-    overflow = jnp.max(counts) > cap
-    return packed, valid, overflow
-
-
-INVALID_COORD = np.float32(1e30)
-
-
-def ell_pack_scatter(
-    keys_sorted: jax.Array,  # (n,) SFC-sorted particle keys
-    perm: jax.Array,  # (n_cells,) row-major -> SFC cell index
-    arrays: Tuple[jax.Array, ...],  # (n,) sorted f32 particle fields
-    cap: int,
-    level: int,
-    n_valid=None,
-) -> Tuple[Tuple[jax.Array, ...], jax.Array, jax.Array, jax.Array]:
-    """Scatter-formulated ELL pack: no cell table, no slot gather.
-
-    The gather form (ell_pack) touches n_cells*cap slot indices and needs
-    a build_cell_table scatter-add first; XLA TPU scatters/gathers cost
-    per *index*, so packing 1M particles into a 2x-padded grid that way
-    costs ~3M index ops. This form costs exactly n: each particle's cell
-    is its top key bits (particles are key-sorted, so within-cell rank is
-    a cummax over run starts), and all F fields plus the particle index
-    ride ONE (n, F+1) scatter. A final (n_cells,) row-permute rearranges
-    SFC cell order to row-major — 8^level indices, negligible.
-
-    Returns (packed arrays (n_cells, cap) each, valid, pidx, overflow):
-    pidx maps ELL slots back to sorted particle positions (INT32_MAX
-    sentinel in empty slots, sorts last), valid marks occupied slots.
-    """
-    n = keys_sorted.shape[0]
-    dt = keys_sorted.dtype
-    L = max_tree_level(dt)
-    shift = dt.type(3 * (L - level))
-    n_cells = 1 << (3 * level)
-    F = len(arrays)
-    assert all(a.dtype == jnp.float32 for a in arrays)
-
-    # clamp in the key dtype BEFORE the int32 cast: sentinel-padded keys at
-    # level == max_tree_level (shift 0) would otherwise wrap negative and
-    # pass the `cell < n_cells` validity check
-    cell = jnp.minimum(keys_sorted >> shift, dt.type(n_cells)).astype(jnp.int32)
-    i = jnp.arange(n, dtype=jnp.int32)
-    ok = cell < n_cells
-    if n_valid is not None:
-        ok = ok & (i < jnp.asarray(n_valid, jnp.int32))
-
-    boundary = jnp.concatenate(
-        [jnp.ones((1,), bool), cell[1:] != cell[:-1]]
-    )
-    run_start = jax.lax.cummax(jnp.where(boundary, i, 0))
-    rank = i - run_start
-    overflow = jnp.max(jnp.where(ok, rank, -1)) >= cap
-
-    tgt = jnp.where(ok & (rank < cap), cell * cap + rank, n_cells * cap)
-    # F+1 SCALAR scatters, not one (n, F+1) row scatter: XLA TPU lowers
-    # row scatters >2x slower than the equivalent scalar scatters
-    # (measured 120ms vs 55ms for 1M rows of 5 — scripts/exp_scatter.py)
-    def scat(vals, fill):
-        buf = jnp.full((n_cells * cap,), fill, vals.dtype)
-        buf = buf.at[tgt].set(vals, mode="drop")
-        return buf.reshape(n_cells, cap)[perm]  # row-major cell order
-
-    packed = tuple(scat(a, INVALID_COORD) for a in arrays)
-    pidx = scat(i, jnp.int32(np.iinfo(np.int32).max))
-    valid = packed[0] != INVALID_COORD
-    return packed, valid, pidx, overflow
-
-
 def ell_pack_gather(
     keys_sorted: jax.Array,  # (n,) SFC-sorted particle keys
     perm: jax.Array,  # (n_cells,) row-major -> SFC cell index
@@ -239,26 +164,21 @@ def ell_pack_gather(
     SFC-sorted particles are CONTIGUOUS per grid cell, so the pack is a
     window copy per cell, not a scatter: cell starts come from one
     searchsorted over the top key bits, and ALL fields ride a single
-    (n_cells*cap)-row gather of the stacked (n, F) array. Measured on TPU
-    (scripts/exp_pack.py, 1M/level-5/cap-64): ~21ms net vs ~35ms for the
-    scalar-scatter form (ell_pack_scatter) — scatters pay ~2x per index
-    and need one pass per field, the row gather pays once per slot. The
+    (n_cells*cap)-row gather of the stacked (n, F) array. The
     slot->particle backmap (pidx) is arithmetic (start + lane), no
     scatter at all.
 
-    The windows ride an 8-PARTICLE-BLOCK gather + shift-select rather than
-    a per-slot gather: XLA TPU gathers cost per *index*, so fetching
-    (cap/8 + 1) rows of 8 stacked particles per cell costs n_cells*(cap/8+1)
-    indices (295k at 1M/level-5/cap-64 — 6.8x fewer than the 2M slot
-    gather), then each cell's window is realigned to its run start with an
-    8-way static-slice lane select (off = start % 8), which XLA fuses into
-    one elementwise pass. Measured on TPU (scripts/exp_pack.py): ~8ms net
-    including the searchsorted, vs ~17ms for the per-slot row gather and
-    ~29ms for the scalar-scatter form.
+    The windows ride a blk-PARTICLE-BLOCK gather + shift-select rather
+    than a per-slot gather: fetching (cap/blk + 1) rows of blk stacked
+    particles per cell costs n_cells*(cap/blk + 1) gather indices instead
+    of n_cells*cap, then each cell's window is realigned to its run start
+    with log2(blk) static-slice selects (off = start % blk), which XLA
+    fuses into one elementwise pass.
 
-    Same contract as ell_pack_scatter: returns (packed (n_cells, cap)
-    arrays in row-major cell order, valid, pidx with INT32_MAX in empty
-    slots, overflow).
+    Returns (packed (n_cells, cap) arrays in row-major cell order, valid,
+    pidx, overflow): pidx maps ELL slots back to sorted particle positions
+    (INT32_MAX in empty slots, so they sort last); empty slots of every
+    packed field hold INVALID_COORD.
     """
     n = keys_sorted.shape[0]
     dt = keys_sorted.dtype
@@ -292,7 +212,7 @@ def ell_pack_gather(
 
     # stacked blk-particle rows, padded so every cell's (cap/blk + 1)-row
     # window stays in bounds with INVALID fill; larger blk trades gather
-    # indices (the dominant cost, ~18ns each) for a wider realign select
+    # indices for a wider realign select
     while cap % blk:
         blk //= 2
     blk = max(blk, 1)
@@ -310,9 +230,7 @@ def ell_pack_gather(
     win = stackedB[rows].reshape(n_cells, nr * blk * F)
     off = s_rm % blk
     # binary-select realign: log2(blk) conditional shifts instead of a
-    # blk-way one-hot select — larger blk then strictly wins (fewer gather
-    # rows at ~18ns/index each, same realign cost: blk 16->64 cuts row
-    # indices 2.5x and the realign to 6 passes)
+    # blk-way one-hot select
     rem = blk - 1
     b = blk >> 1
     while b:
@@ -334,12 +252,13 @@ def ell_pack_gather(
 
 def _searchsorted_i32(cell_sorted: jax.Array, n_cells: int) -> jax.Array:
     """searchsorted(cell_sorted, arange(n_cells+1)) via the sort method
-    (ops/primitives.py rationale: multi-M scan-method searchsorted is
-    pathological on TPU; one fused sort is ~5ms/M)."""
+    of ops/primitives.searchsorted."""
     from ..ops.primitives import searchsorted
 
     q = jnp.arange(n_cells + 1, dtype=jnp.int32)
     return searchsorted(cell_sorted, q, side="left").astype(jnp.int32)
+
+
 
 
 def _roll3(a: jax.Array, dx: int, dy: int, dz: int) -> jax.Array:
@@ -353,65 +272,103 @@ def _roll3(a: jax.Array, dx: int, dy: int, dz: int) -> jax.Array:
     return a
 
 
-def stencil_neighbor_counts(
-    px: jax.Array,  # (n_cells, cap) ELL coords, row-major cell order
-    py: jax.Array,
-    pz: jax.Array,
-    r2: jax.Array,  # (n_cells, cap) squared search radii (2h)^2; <0 if invalid
-    valid: jax.Array,  # (n_cells, cap) occupancy mask
-    box: Box,
+def stencil_xla(
+    tgt: Sequence[jax.Array],  # (tx, ty, tz, r2|h), each (n_cells, cap_t)
+    cand: Sequence[jax.Array],  # (cx, cy, cz), each (n_cells, cap_c)
+    lengths,  # (3,) box lengths; may be traced
+    periodic: Tuple[bool, bool, bool],
     level: int,
+    op: str = "count",
+    exclude_self: bool = True,
+    cand_mass: Optional[jax.Array] = None,  # (n_cells, cap_c), 0 in empties
 ) -> jax.Array:
-    """(n_cells, cap) neighbor counts via the 27-point roll stencil."""
+    """(n_cells, cap_t) target-side 27-point stencil sums in plain XLA.
+
+    The plain reference of ops/pallas_stencil.stencil_pallas, with the
+    same contract: op="count" counts candidates with d2 < r2_i (int32),
+    op="density" sums m_j W(|r_ij| / h_i) (float32, m_j = 1 without a
+    mass plane). Targets and candidates are ELL grids on the same
+    row-major level-`level` cell grid; empty candidate slots sit at
+    INVALID_COORD, empty targets carry r2 < 0 (count) or h = 1e30
+    (density). exclude_self drops the j == i slot pair of the centre cell
+    (targets and candidates are one pack). Neighbour cells are jnp.roll
+    shifts of the candidate grid: the roll is the periodic wrap, +-L
+    corrects the coordinate, and open boundaries mask the wrapped cells.
+    """
+    if op not in ("count", "density"):
+        raise ValueError(f"unknown stencil op {op!r}")
     D = 1 << int(level)
-    cap = px.shape[1]
-    shp = (D, D, D, cap)
-    ex, ey, ez = (a.reshape(shp) for a in (px, py, pz))
-    ev = valid.reshape(shp)
-    er2 = r2.reshape(shp)
-
-    L = box.lengths.astype(jnp.float32)  # (3,); may be traced inside jit
-    periodic = [int(b) == 1 for b in box.boundaries]
+    cap_t = tgt[0].shape[1]
+    cap_c = cand[0].shape[1]
+    tx, ty, tz, tp = (
+        a.astype(jnp.float32).reshape(D, D, D, cap_t, 1) for a in tgt)
+    grid_c = [a.astype(jnp.float32).reshape(D, D, D, cap_c) for a in cand]
+    mass = (None if cand_mass is None
+            else cand_mass.astype(jnp.float32).reshape(D, D, D, cap_c))
+    L = jnp.asarray(lengths, jnp.float32).reshape(3)
     idx = jnp.arange(D, dtype=jnp.int32)
+    if op == "density":
+        inv_h = 1.0 / tp
+    same_slot = (jnp.arange(cap_t)[:, None] == jnp.arange(cap_c)[None, :])
 
-    slot = jnp.arange(cap, dtype=jnp.int32)
-    counts = jnp.zeros(shp, dtype=jnp.int32)
-
+    acc = jnp.zeros((D, D, D, cap_t), jnp.float32)
     for dx in (-1, 0, 1):
         for dy in (-1, 0, 1):
             for dz in (-1, 0, 1):
-                cx = _roll3(ex, dx, dy, dz)
-                cy = _roll3(ey, dx, dy, dz)
-                cz = _roll3(ez, dx, dy, dz)
-                cv = _roll3(ev, dx, dy, dz)
-                # wrap correction / edge masking per axis
-                for axis, d, cc, Ld in ((0, dx, "x", L[0]), (1, dy, "y", L[1]), (2, dz, "z", L[2])):
+                c = [_roll3(a, dx, dy, dz) for a in grid_c]
+                keep = None  # (D, D, D, 1, 1) open-boundary mask
+                for axis, d in enumerate((dx, dy, dz)):
                     if d == 0:
                         continue
-                    over = (idx + d) // D  # -1, 0, or +1 at the edges
-                    bshape = [1, 1, 1, 1]
-                    bshape[axis] = D
-                    over_b = over.reshape(bshape)
+                    shape = [1, 1, 1, 1]
+                    shape[axis] = D
+                    wrap = ((idx + d) // D).reshape(shape)  # -1, 0, +1
                     if periodic[axis]:
-                        corr = over_b.astype(jnp.float32) * Ld
-                        if cc == "x":
-                            cx = cx + corr
-                        elif cc == "y":
-                            cy = cy + corr
-                        else:
-                            cz = cz + corr
+                        c[axis] = c[axis] + wrap.astype(jnp.float32) * L[axis]
                     else:
-                        cv = cv & (over_b == 0)
-                ddx = ex[..., :, None] - cx[..., None, :]
-                ddy = ey[..., :, None] - cy[..., None, :]
-                ddz = ez[..., :, None] - cz[..., None, :]
+                        k = (wrap == 0)[..., None]
+                        keep = k if keep is None else keep & k
+                ddx = tx - c[0][..., None, :]
+                ddy = ty - c[1][..., None, :]
+                ddz = tz - c[2][..., None, :]
                 d2 = ddx * ddx + ddy * ddy + ddz * ddz
-                w = (d2 < er2[..., :, None]) & cv[..., None, :] & ev[..., :, None]
-                if dx == 0 and dy == 0 and dz == 0:
-                    w = w & (slot[:, None] != slot[None, :])
-                counts = counts + jnp.sum(w, axis=-1, dtype=jnp.int32)
+                if op == "count":
+                    term = (d2 < tp).astype(jnp.float32)
+                else:
+                    term = cubic_spline_w(jnp.sqrt(d2) * inv_h)
+                    if mass is not None:
+                        term = term * _roll3(mass, dx, dy, dz)[..., None, :]
+                if keep is not None:
+                    term = jnp.where(keep, term, 0.0)
+                if exclude_self and (dx, dy, dz) == (0, 0, 0):
+                    term = jnp.where(same_slot, 0.0, term)
+                acc = acc + jnp.sum(term, axis=-1)
 
-    return counts.reshape(-1, cap)
+    acc = acc.reshape(-1, cap_t)
+    return acc.astype(jnp.int32) if op == "count" else acc
+
+
+def choose_stencil(platform: Optional[str] = None):
+    """The stencil implementation for `platform` (default: JAX's default
+    backend): the compiled Pallas kernel on "gpu", the plain XLA stencil
+    everywhere else."""
+    platform = platform or jax.default_backend()
+    if platform == "gpu":
+        from ..ops.pallas_stencil import stencil_pallas
+
+        return stencil_pallas
+    return stencil_xla
+
+
+# When set, the stencil the entry points run instead of choose_stencil()'s
+# pick: the seam through which tests run the kernel in interpret mode and
+# chip_smoke.py times the kernel against the plain stencil. Read at trace
+# time.
+_stencil_override = None
+
+
+def _stencil():
+    return _stencil_override or choose_stencil()
 
 
 def stencil_stats(
@@ -426,7 +383,7 @@ def stencil_stats(
     D = 1 << int(level)
     occ_i = offsets[perm + 1] - offsets[perm]
     # f32 accumulation: a diagnostic counter (pairs can exceed int32 at
-    # large N; TPU has no native i64)
+    # large N)
     occ = occ_i.astype(jnp.float32).reshape(D, D, D)
     nb = jnp.zeros_like(occ)
     for dx in (-1, 0, 1):
@@ -435,6 +392,15 @@ def stencil_stats(
                 nb = nb + _roll3(occ, dx, dy, dz)
     pairs = jnp.sum(occ * nb)
     return pairs, jnp.max(occ_i).astype(jnp.int32)
+
+
+def _backmap_sort(pidx: jax.Array, vals_ell: jax.Array, n: int) -> jax.Array:
+    """ELL slot values back to sorted particle order: one sort by the
+    slot's particle index (empty slots carry INT32_MAX and sort last)."""
+    _, vals = jax.lax.sort(
+        (pidx.reshape(-1), vals_ell.reshape(-1)), num_keys=1, is_stable=False
+    )
+    return vals[:n]
 
 
 def cell_list_neighbor_counts(
@@ -448,9 +414,6 @@ def cell_list_neighbor_counts(
     cap: int,
     curve: str = HILBERT,
     n_valid=None,
-    impl: str = "xla",
-    interpret: bool = False,
-    const_h: bool = False,
 ) -> Tuple[jax.Array, jax.Array]:
     """(n,) neighbor counts in sorted particle order + overflow flag.
 
@@ -458,45 +421,23 @@ def cell_list_neighbor_counts(
     semantics) provided the grid cell side at `level` is >= 2*max(hs):
     use choose_cell_level. Overflow=True means some cell held more than
     `cap` particles and the result is invalid — retry with a larger cap.
-    impl="pallas" uses the symmetric half-stencil TPU kernel
-    (ops/pallas_stencil.py; requires a lane-alignable cap, e.g. 64),
-    impl="pallas_asym" the one-sided kernel, impl="xla" the portable roll
-    stencil. const_h=True promises all hs are equal (skips the
-    candidate-side radius plane in the symmetric kernel; wrong results if
-    violated). No cell table is needed: the pack derives cells from the
-    key bits.
+    The stencil is choose_stencil()'s. No cell table is needed: the pack
+    derives cells from the key bits.
     """
     n = keys_sorted.shape[0]
-    perm, inv = rowmajor_cell_perm(int(level), curve)
-
-    # NOTE: even at const_h the h plane stays in the pack — F=4 keeps the
-    # blocked gather's rows lane-aligned (blk*F = 64 floats); an F=3 pack
-    # measured SLOWER (5.1 vs 4.6ms at 1M, scripts/exp_sym.py)
+    perm, _ = rowmajor_cell_perm(int(level), curve)
     (px, py, pz, ph), valid, pidx, overflow = ell_pack_gather(
         keys_sorted, perm, (xs, ys, zs, hs), cap, int(level), n_valid=n_valid
     )
     r2 = jnp.where(valid, (2.0 * ph) ** 2, jnp.float32(-1.0))
     periodic = tuple(int(b) == 1 for b in box.boundaries)
-    if impl == "pallas":
-        from ..ops.pallas_stencil import stencil_counts_pallas_sym
-
-        counts_ell = stencil_counts_pallas_sym(
-            px, py, pz, r2, valid, box.lengths, periodic, int(level),
-            same_r2=const_h, interpret=interpret,
-        )
-    elif impl == "pallas_asym":
-        from ..ops.pallas_stencil import stencil_counts_pallas
-
-        counts_ell = stencil_counts_pallas(
-            px, py, pz, r2, valid, box.lengths, periodic, int(level),
-            interpret=interpret,
-        )
-    else:
-        counts_ell = stencil_neighbor_counts(px, py, pz, r2, valid, box, int(level))
+    counts_ell = _stencil()(
+        (px, py, pz, r2), (px, py, pz), box.lengths, periodic, int(level),
+        op="count", exclude_self=True,
+    )
 
     # back to particle order via ONE sort instead of a per-particle
-    # gather (XLA TPU gathers cost ~50ms/M indices; sorts ~5ms/M): the
-    # pack recorded each slot's particle index (empty slots sort last)
+    # gather: the pack recorded each slot's particle index
     count_bits = int(27 * cap).bit_length()  # counts <= 27*cap structurally
     if (n + 1) << count_bits < (1 << 31):
         # fused-key backmap: (pidx << bits | count) rides ONE u32 sort
@@ -510,11 +451,7 @@ def cell_list_neighbor_counts(
         key_s = jax.lax.sort(key)
         counts = key_s[:n] & jnp.uint32((1 << count_bits) - 1)
     else:
-        pidx_s, counts_s = jax.lax.sort(
-            (pidx.reshape(-1), counts_ell.reshape(-1)), num_keys=1,
-            is_stable=False,
-        )
-        counts = counts_s[:n].astype(jnp.uint32)
+        counts = _backmap_sort(pidx, counts_ell, n).astype(jnp.uint32)
     return counts, overflow
 
 
@@ -530,56 +467,35 @@ def cell_list_sph_density(
     mass=1.0,  # uniform scalar mass OR (n,) per-particle masses
     curve: str = HILBERT,
     n_valid=None,
-    const_h: bool = False,
-    interpret: bool = False,
 ) -> Tuple[jax.Array, jax.Array]:
     """(n,) SPH densities in sorted particle order + overflow flag.
 
     rho_i = (1 / pi h_i^3) * (sum_{j != i} m_j W(|r_ij| / h_i) + m_i W(0))
     with the cubic-spline W — identical formula to models/sph.py's
-    tree-path density, but the interaction is fused into the symmetric
-    half-stencil Pallas kernel: one resident pass, no neighbor-index lists
-    in HBM (the reference runs its per-pair op inside the warp traversal
-    the same way, find_neighbors.cuh:94-124; the separate
-    findNeighbors+force-loop shape is a CPU-ism this framework only keeps
-    on the tree path for API parity). `mass` may be a scalar (uniform m
-    factored out of the sum) or an (n,) array in the same sorted order
-    (packed as a kernel mass plane). Exact provided the grid cell side at
-    `level` is >= 2*max(hs). const_h=True promises all hs equal (skips
-    the candidate-h plane).
+    tree-path density, but the interaction is fused into the stencil
+    pass: no neighbor-index lists in device memory (the reference runs its
+    per-pair op inside the warp traversal the same way,
+    find_neighbors.cuh:94-124; the separate findNeighbors+force-loop shape
+    is kept only on the tree path for API parity). `mass` may be a scalar
+    (uniform m factored out of the sum) or an (n,) array in the same
+    sorted order (packed as a candidate mass plane). Exact provided the
+    grid cell side at `level` is >= 2*max(hs).
     """
     n = keys_sorted.shape[0]
-    perm, inv = rowmajor_cell_perm(int(level), curve)
+    perm, _ = rowmajor_cell_perm(int(level), curve)
 
-    per_particle_m = hasattr(mass, "ndim") and getattr(mass, "ndim", 0) == 1
-    # with const_h AND per-particle masses, drop the h plane from the pack
-    # (F=5 -> F=4 keeps the blocked gather's rows lane-aligned at blk*F=64
-    # floats); otherwise keep F=4 — an F=3 pack measured slower
-    # (scripts/exp_sym.py)
-    drop_h = const_h and per_particle_m
-    fields = (
-        ((xs, ys, zs) if drop_h else (xs, ys, zs, hs))
-        + ((jnp.asarray(mass, jnp.float32),) if per_particle_m else ())
-    )
+    per_particle_m = getattr(mass, "ndim", 0) == 1
+    fields = (xs, ys, zs, hs) + (
+        (jnp.asarray(mass, jnp.float32),) if per_particle_m else ())
     packed, valid, pidx, overflow = ell_pack_gather(
         keys_sorted, perm, fields, cap, int(level), n_valid=n_valid
     )
-    px, py, pz = packed[:3]
-    if drop_h:
-        # uniform h: one scalar broadcast over the mask, no packed plane
-        ph = jnp.where(valid, hs[0].astype(jnp.float32), INVALID_COORD)
-        pm = packed[3]
-    else:
-        ph = packed[3]
-        pm = packed[4] if per_particle_m else None
-    if pm is not None:
-        pm = jnp.where(valid, pm, 0.0)
-    from ..ops.pallas_stencil import stencil_density_pallas_sym
-
+    px, py, pz, ph = packed[:4]
+    pm = jnp.where(valid, packed[4], 0.0) if per_particle_m else None
     periodic = tuple(int(b) == 1 for b in box.boundaries)
-    wsum = stencil_density_pallas_sym(
-        px, py, pz, ph, valid, box.lengths, periodic, int(level),
-        same_h=const_h, interpret=interpret, pm=pm,
+    wsum = _stencil()(
+        (px, py, pz, ph), (px, py, pz), box.lengths, periodic, int(level),
+        op="density", exclude_self=True, cand_mass=pm,
     )
     # self term m_i * W(0) = m_i (unnormalized cubic spline) + normalization
     inv_h = jnp.where(valid, 1.0 / ph, 0.0)
@@ -591,7 +507,4 @@ def cell_list_sph_density(
         rho_ell = (jnp.float32(mass) / np.float32(np.pi)) * (
             (wsum + 1.0) * inv_h * inv_h * inv_h
         )
-    pidx_s, rho_s = jax.lax.sort(
-        (pidx.reshape(-1), rho_ell.reshape(-1)), num_keys=1, is_stable=False
-    )
-    return rho_s[:n], overflow
+    return _backmap_sort(pidx, rho_ell, n), overflow

@@ -1,6 +1,6 @@
 """Halo discovery via 3D collision detection.
 
-TPU-native re-design of the reference's findHalos (reference:
+JAX re-design of the reference's findHalos (reference:
 include/cstone/traversal/collisions.hpp + collisions_gpu.cu). Every local
 leaf builds a halo search box (its node box dilated by the per-leaf
 interaction radius); one batched traversal marks all tree leaves whose

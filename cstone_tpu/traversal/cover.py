@@ -1,10 +1,10 @@
 """Closed-form SFC-grid candidate cover for neighbor search.
 
-TPU-first replacement for the per-group tree traversal of the neighbor
+Dense replacement for the per-group tree traversal of the neighbor
 pipeline. The reference walks the octree per target group to collect
 candidate leaf cells (reference: traversal/find_neighbors.cuh:200-343,
-findneighbors.hpp:96-165); a tree walk is irregular, gather-bound work
-that maps poorly onto the VPU. This module instead exploits two facts:
+findneighbors.hpp:96-165); a tree walk is irregular, gather-bound work.
+This module instead exploits two facts:
 
   1. particles are SFC-sorted, so ANY key interval is a contiguous
      particle-index run — no tree needed to map cells to particles;
@@ -76,8 +76,7 @@ def _merge_sorted_intervals(
     """
     n_groups, K = pstart.shape
     nonempty = pend > pstart
-    # carry the last nonempty end across empty slots (same trick as
-    # ops/pallas_neighbors_v2.merge_leaf_runs)
+    # carry the last nonempty end across empty slots
     k = jnp.arange(K, dtype=jnp.int32)
     tag = jnp.where(nonempty, k, -1)
     last_ne = jax.lax.cummax(tag, axis=1)

@@ -1,6 +1,6 @@
 """Target particle grouping for traversal amortization.
 
-TPU-native equivalent of the reference's target groups (reference:
+JAX equivalent of the reference's target groups (reference:
 include/cstone/traversal/groups.hpp:19-55, groups_gpu.{h,cuh}). Groups are
 ranges of SFC-consecutive, spatially compact particles that share one tree
 traversal. Provides fixed-size grouping (computeFixedGroups,

@@ -1,6 +1,6 @@
 """Multipole acceptance criteria (MAC) evaluation and marking.
 
-TPU-native re-design of the reference's MAC machinery (reference:
+JAX re-design of the reference's MAC machinery (reference:
 include/cstone/traversal/macs.hpp). Provides the min-distance and vector
 MAC radii, PBC-aware evaluation, the commutative variants used by peer
 discovery, and markMacs — flagging every tree node that fails the MAC

@@ -1,6 +1,6 @@
 """Fixed-radius neighbor search over the linked octree.
 
-TPU-native re-design of the reference's neighbor search (reference:
+Re-design of the reference's neighbor search (reference:
 include/cstone/findneighbors.hpp:80-188 for semantics, and the GPU
 warp-BFS kernel traversal/find_neighbors.cuh:200-506 for the structure).
 
@@ -8,8 +8,8 @@ Like the reference GPU kernel, targets are processed in groups of
 spatially-compact, SFC-consecutive particles: one tree traversal per
 *group* (bounding box dilated by the group's max search radius) collects
 candidate leaf cells; the group's particles are then tested all-pairs
-against the candidates — an operation that is dense, regular, and
-VPU/MXU-friendly. Semantics match findNeighbors exactly: a neighbor of i
+against the candidates — an operation that is dense and regular.
+Semantics match findNeighbors exactly: a neighbor of i
 is any j != i with dist^2(i,j) < (2*h_i)^2 (PBC-aware); returned counts
 include neighbors beyond ng_max, while index lists are capped at ng_max
 (findneighbors.hpp:111-158).
@@ -46,8 +46,6 @@ class NbStats:
     leaf_max: jax.Array  # candidate leaves per group (cap: cand_leaf_cap)
     frontier_max: jax.Array  # BFS frontier width (cap: frontier_cap)
     cand_max: jax.Array  # flattened candidates per group (cap: cand_cap)
-    run_max: jax.Array  # merged particle runs per group (cap: run_cap)
-    pbc_bad: jax.Array  # bool: v1 single-wrap PBC validity violated
 
 
 @jax.tree_util.register_dataclass
@@ -97,11 +95,7 @@ def _group_reduce(arr: jax.Array, n: int, group_size: int, n_groups: int, fill, 
         "chunk",
         "with_indices",
         "n_targets",
-        "use_pallas",
         "frontier_cap",
-        "run_cap",
-        "tile",
-        "interpret",
     ),
 )
 def _find_neighbors_impl(
@@ -118,11 +112,7 @@ def _find_neighbors_impl(
     chunk: int,
     with_indices: bool,
     n_targets: int,
-    use_pallas=False,  # False -> XLA chunks; True/"v1" -> gather kernel; "v2" -> run streaming
     frontier_cap: int = 64,
-    run_cap: int = 48,
-    tile: int = 1024,
-    interpret: bool = False,
 ):
     n = n_targets
     fdt = x.dtype
@@ -172,67 +162,6 @@ def _find_neighbors_impl(
     leaf_max = jnp.max(n_cand_leaves).astype(jnp.int32)
     frontier_max = jnp.max(fmax).astype(jnp.int32)
 
-    # ---- v2: merged contiguous runs streamed by the Pallas kernel ----------
-    if use_pallas == "v2" and not with_indices:
-        from ..ops.pallas_neighbors_v2 import merge_leaf_runs, pairwise_count_runs
-
-        run_start, run_len, n_runs, _ = merge_leaf_runs(
-            leaf_idx, n_cand_leaves, view.layout, run_cap
-        )
-        gb = 8
-        pad_groups = -(-n_groups // gb) * gb
-
-        def padg(a, fill=0):
-            p = pad_groups - a.shape[0]
-            if p:
-                a = jnp.concatenate(
-                    [a, jnp.full((p,) + a.shape[1:], fill, a.dtype)]
-                )
-            return a
-
-        n_pad = max(tile, -(-x.shape[0] // tile) * tile)
-        big = fdt.type(np.finfo(fdt).max) / fdt.type(2.0)
-
-        def padp(a):
-            p = n_pad - a.shape[0]
-            return jnp.concatenate([a, jnp.full((p,), big, a.dtype)]) if p else a
-
-        targets = padg(jnp.stack([gx, gy, gz], axis=-1))
-        r2 = padg(jnp.where(gvalid, (fdt.type(2.0) * gh) ** 2, fdt.type(-1.0)), -1.0)
-        box_params = jnp.concatenate(
-            [
-                box.lengths.astype(jnp.float32),
-                (1.0 / box.lengths).astype(jnp.float32),
-                jnp.asarray(box.periodic_mask, jnp.float32),
-            ]
-        )
-        counts = pairwise_count_runs(
-            targets.astype(jnp.float32),
-            r2.astype(jnp.float32),
-            padg(run_start),
-            padg(run_len),
-            padp(x), padp(y), padp(z),
-            box_params,
-            tile=tile,
-            group_block=gb,
-            interpret=interpret,
-        )
-        counts = counts.reshape(-1)[: n_groups * group_size]
-        if counts.shape[0] < x.shape[0]:
-            counts = jnp.concatenate(
-                [counts, jnp.zeros((x.shape[0] - counts.shape[0],), counts.dtype)]
-            )
-        else:
-            counts = counts[: x.shape[0]]
-        stats = NbStats(
-            leaf_max=leaf_max,
-            frontier_max=frontier_max,
-            cand_max=jnp.int32(0),
-            run_max=jnp.max(n_runs).astype(jnp.int32),
-            pbc_bad=jnp.bool_(False),
-        )
-        return counts, None, stats
-
     # ---- flatten candidate particle ranges per group ----------------------
     # segment fill via scatter + cumulative max instead of per-slot binary
     # search (the searchsorted formulation costs ~8 serial gathers per slot)
@@ -260,21 +189,6 @@ def _find_neighbors_impl(
     cand_idx = jnp.where(cand_valid, cand_idx, 0)
 
     # ---- all-pairs distance tests -------------------------------------------
-    if use_pallas and not with_indices:
-        counts, cand_ovf, pbc_bad = _pairwise_pallas(
-            x, y, z, gx, gy, gz, gh, gvalid, g_center, g_size,
-            cand_idx, cand_valid, total_cand, box, n_groups, group_size,
-            cand_cap, any_pbc, interpret,
-        )
-        stats = NbStats(
-            leaf_max=leaf_max,
-            frontier_max=frontier_max,
-            cand_max=cand_ovf.astype(jnp.int32),
-            run_max=jnp.int32(0),
-            pbc_bad=pbc_bad,
-        )
-        return counts[: x.shape[0]], None, stats
-
     n_chunks = -(-n_groups // chunk)
     pad_groups = n_chunks * chunk
 
@@ -349,8 +263,6 @@ def _find_neighbors_impl(
         leaf_max=leaf_max,
         frontier_max=frontier_max,
         cand_max=jnp.max(total_cand).astype(jnp.int32),
-        run_max=jnp.int32(0),
-        pbc_bad=jnp.bool_(False),
     )
     if with_indices:
         nbs = nbs.reshape(pad_groups * group_size, ng_max)[: x.shape[0]]
@@ -358,81 +270,11 @@ def _find_neighbors_impl(
     return counts, None, stats
 
 
-def _pairwise_pallas(
-    x, y, z, gx, gy, gz, gh, gvalid, g_center, g_size,
-    cand_idx, cand_valid, total_cand, box: Box, n_groups: int,
-    group_size: int, cand_cap: int, any_pbc: bool, interpret: bool,
-):
-    """Pallas count path: pre-gather candidates, poison invalid rows, wrap
-    periodic images once per group, then run the VMEM-resident kernel.
-
-    PBC validity: each candidate is wrapped to the image nearest the GROUP
-    center; this equals the per-target minimum image whenever
-    2h + group half-extent < L/2 per dimension. Violations are reported
-    through the overflow flag (callers reduce group_size or fall back).
-    """
-    from ..ops.pallas_neighbors import pairwise_count
-
-    fdt = x.dtype
-    gb = 8
-    pad_groups = -(-n_groups // gb) * gb
-
-    def padg(a, fill=0):
-        p = pad_groups - a.shape[0]
-        if p:
-            a = jnp.concatenate([a, jnp.full((p,) + a.shape[1:], fill, a.dtype)])
-        return a
-
-    cxs = x[cand_idx]
-    cys = y[cand_idx]
-    czs = z[cand_idx]
-    if any_pbc:
-        pm = jnp.asarray(box.periodic_mask, fdt)
-        L = box.lengths.astype(fdt)
-        iL = (1.0 / box.lengths).astype(fdt)
-        gcx, gcy, gcz = g_center[:, 0:1], g_center[:, 1:2], g_center[:, 2:3]
-        cxs = cxs - pm[0] * L[0] * jnp.round((cxs - gcx) * iL[0])
-        cys = cys - pm[1] * L[1] * jnp.round((cys - gcy) * iL[1])
-        czs = czs - pm[2] * L[2] * jnp.round((czs - gcz) * iL[2])
-        # validity of the single-wrap: 2h_max + group half extent < L/2
-        bad = jnp.any(
-            (2.0 * jnp.max(jnp.where(gvalid, gh, 0.0), axis=1)[:, None] + g_size)
-            >= (jnp.where(pm > 0, L, jnp.inf) * fdt.type(0.5))[None, :]
-        )
-    else:
-        bad = jnp.bool_(False)
-
-    big = fdt.type(np.finfo(fdt).max) / fdt.type(2.0)
-    poison = ~cand_valid
-    cxs = jnp.where(poison, big, cxs)
-    cys = jnp.where(poison, big, cys)
-    czs = jnp.where(poison, big, czs)
-
-    targets = padg(jnp.stack([gx, gy, gz], axis=-1))
-    cand = padg(jnp.stack([cxs, cys, czs], axis=-1))
-    r2 = (fdt.type(2.0) * gh) ** 2
-    r2 = jnp.where(gvalid, r2, fdt.type(-1.0))
-    r2 = padg(r2, -1.0)
-    cidx = padg(jnp.where(cand_valid, cand_idx, jnp.int32(-1)), -1)
-
-    counts = pairwise_count(
-        targets, r2, cand, cidx, group_block=gb, interpret=interpret
-    )
-    counts = counts.reshape(-1)[: n_groups * group_size]
-    if counts.shape[0] < x.shape[0]:
-        counts = jnp.concatenate(
-            [counts, jnp.zeros((x.shape[0] - counts.shape[0],), counts.dtype)]
-        )
-
-    return counts, jnp.max(total_cand), bad
-
-
 def check_nb_stats(
     stats: NbStats,
     cand_leaf_cap: int,
     frontier_cap: int,
     cand_cap: int,
-    run_cap: int,
 ) -> None:
     """Raise if any capacity in the neighbor pass overflowed (results would
     be silently incomplete otherwise)."""
@@ -451,16 +293,6 @@ def check_nb_stats(
             f"candidate capacity {cand_cap} exceeded "
             f"(needed {int(stats.cand_max)}); raise cand_cap"
         )
-    if int(stats.run_max) > run_cap:
-        raise RuntimeError(
-            f"run capacity {run_cap} exceeded (needed {int(stats.run_max)}); "
-            "raise run_cap"
-        )
-    if bool(stats.pbc_bad):
-        raise RuntimeError(
-            "periodic wrap validity violated: 2h + group half-extent >= L/2; "
-            "reduce group_size or use the v2/XLA path"
-        )
 
 
 def find_neighbors(
@@ -478,29 +310,17 @@ def find_neighbors(
     with_indices: bool = False,
     n_targets: Optional[int] = None,
     frontier_cap: int = 64,
-    run_cap: int = 48,
-    tile: int = 1024,
-    use_pallas=None,
 ) -> Tuple[jax.Array, Optional[jax.Array]]:
     """Neighbor counts (and optionally indices) for SFC-ordered particles.
 
     Semantics per findneighbors.hpp:95-165; counts may exceed ng_max,
     indices are capped at ng_max and padded with -1.
-
-    The count-only path runs the run-streaming Pallas kernel by default
-    (interpreted off-TPU); pass use_pallas=False for the pure-XLA path or
-    "v1" for the gather kernel. Index emission always uses the XLA path.
     """
     n = int(x.shape[0]) if n_targets is None else int(n_targets)
-    if use_pallas is None:
-        use_pallas = False if with_indices else "v2"
-    interpret = jax.default_backend() == "cpu"
     counts, nbs, stats = _find_neighbors_impl(
         x, y, z, h, view, box,
         int(ng_max), int(group_size), int(cand_leaf_cap), int(cand_cap), int(chunk),
-        bool(with_indices), n, use_pallas=use_pallas,
-        frontier_cap=int(frontier_cap), run_cap=int(run_cap), tile=int(tile),
-        interpret=interpret,
+        bool(with_indices), n, frontier_cap=int(frontier_cap),
     )
-    check_nb_stats(stats, cand_leaf_cap, frontier_cap, cand_cap, run_cap)
+    check_nb_stats(stats, cand_leaf_cap, frontier_cap, cand_cap)
     return counts, nbs

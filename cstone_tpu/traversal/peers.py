@@ -1,6 +1,6 @@
 """Peer-rank discovery via MAC-based tree traversal.
 
-TPU-native re-design of findPeersMac (reference:
+JAX re-design of findPeersMac (reference:
 include/cstone/traversal/peers.hpp). Semantics follow the single-traversal
 variant findPeersMacStt (peers.hpp:119-171), which the reference validates
 as equal to the dual-traversal version: every local leaf traverses the

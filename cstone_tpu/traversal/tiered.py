@@ -8,20 +8,20 @@ overflows any ELL capacity. This module decomposes the search by h-tier:
   1. particles are assigned the FINEST listed grid level still admissible
      for their radius (cell side >= 2h) and partitioned by (tier, key) —
      one extra sort; within a tier the particles stay SFC-contiguous;
-  2. same-tier pairs run the symmetric half-stencil at the tier's own
+  2. same-tier pairs run the 27-point stencil at the tier's own
      level, where occupancy is bounded by the local neighbor count
      (h ~ interparticle spacing, so a 2h-wide cell holds O(nu) of its own
      tier regardless of absolute density);
-  3. cross-tier pairs run ONE cross pass per tier pair at the COARSER
-     level (whose cell side covers both radii) with the finer tier packed
-     as candidates — both tiers' counts come out of the same pass
-     (target-side row sums + candidate-side column sums).
+  3. cross-tier pairs run two passes per tier pair at the COARSER level
+     (whose cell side covers both radii): the coarse tier's targets
+     against the fine tier's candidates, and the other way round.
 
-Every pass is the same dense-tile Pallas kernel; per-pass ELL capacities
-are independent, so the core's density only sizes the fine tiers. Exact:
-every pair with d < 2*max(h_i, h_j) lands in exactly one pass whose grid
-covers both radii. This is the TPU realization of the regime the
-reference handles with per-warp tree opening (find_neighbors.cuh:200-343).
+Every pass is the same 27-point stencil (celllist.choose_stencil); per-pass
+ELL capacities are independent, so the core's density only sizes the fine
+tiers. Exact: every ordered pair with d < 2*h_i lands in exactly one pass
+whose grid covers the radius. This is the dense-grid form of the regime
+the reference handles with per-warp tree opening
+(find_neighbors.cuh:200-343).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ import numpy as np
 from ..sfc.box import Box
 from ..sfc.encode import HILBERT
 from ..sfc.keys import max_tree_level
-from .celllist import ell_pack_gather, rowmajor_cell_perm
+from .celllist import _stencil, ell_pack_gather, rowmajor_cell_perm
 
 __all__ = [
     "choose_tier_levels",
@@ -92,7 +92,7 @@ def tier_caps(
 ) -> Tuple[Tuple[int, ...], Dict[Tuple[int, int], int]]:
     """Host-side capacity sizing from measured occupancy: per-tier cap at
     its own level, and per (a, b) pair the tier-b candidate cap at
-    level_a. Multiples of 64 (Pallas lane alignment)."""
+    level_a. Multiples of 8."""
     xmin, xmax = float(box_limits[0]), float(box_limits[1])
     span = xmax - xmin
     min_side = span  # cubic box assumed for sizing (caps only need bounds)
@@ -110,7 +110,7 @@ def tier_caps(
         return int(np.bincount(flat, minlength=d * d * d).max())
 
     def rcap(m):
-        return max(64, int(-(-int(m * slack + 8) // 64) * 64))
+        return max(8, int(-(-int(m * slack + 8) // 8) * 8))
 
     T = len(levels)
     same = tuple(rcap(occ_max(tier == t, levels[t])) for t in range(T))
@@ -133,14 +133,9 @@ def cell_list_neighbor_counts_tiered(
     cross_caps: Dict[Tuple[int, int], int],  # (a,b)->tier-b cap at level_a
     curve: str = HILBERT,
     n_valid=None,
-    interpret: bool = False,
 ) -> Tuple[jax.Array, jax.Array]:
     """(n,) exact neighbor counts in input (key-sorted) order + overflow."""
-    from ..ops.pallas_stencil import (
-        stencil_counts_pallas_cross,
-        stencil_counts_pallas_sym,
-    )
-
+    stencil = _stencil()
     n = keys_sorted.shape[0]
     dt = keys_sorted.dtype
     L = max_tree_level(dt)
@@ -166,57 +161,48 @@ def cell_list_neighbor_counts_tiered(
             jnp.where(tier_s > t, jnp.int32(n_cells), cell),
         )
 
-    overflow = jnp.bool_(False)
-    packs = []  # per tier: ((px,py,pz,ph), valid, pidx, r2_ell) at own level
-    for t in range(T):
-        perm, _ = rowmajor_cell_perm(levels[t], curve)
-        packed, valid, pidx, ovf = ell_pack_gather(
-            keys_s, perm, (xs_s, ys_s, zs_s, hs_s), caps[t], levels[t],
-            cell_override=cells_for(t, levels[t]),
+    def pack(t, level, cap):
+        perm, _ = rowmajor_cell_perm(level, curve)
+        (px, py, pz, ph), valid, pidx, ovf = ell_pack_gather(
+            keys_s, perm, (xs_s, ys_s, zs_s, hs_s), cap, level,
+            cell_override=cells_for(t, level),
         )
-        overflow = overflow | ovf
-        r2 = jnp.where(valid, (2.0 * packed[3]) ** 2, jnp.float32(-1.0))
-        packs.append((packed, valid, pidx, r2))
+        r2 = jnp.where(valid, (2.0 * ph) ** 2, jnp.float32(-1.0))
+        return (px, py, pz, r2), pidx, ovf
 
-    # same-tier: symmetric half-stencil at the tier's own level; the
-    # target-side ELL accumulator also receives the cross-pass target legs
+    def count(tgt, cand, level, exclude_self):
+        return stencil(
+            tgt, cand[:3], box.lengths, periodic, level, op="count",
+            exclude_self=exclude_self,
+        )
+
+    # same-tier: the tier against itself at its own level; the target-side
+    # ELL accumulator also receives the cross passes' coarse-tier legs
+    overflow = jnp.bool_(False)
+    packs = []  # per tier: (planes, pidx) at the tier's own level
     totals_ell = []
     for t in range(T):
-        (px, py, pz, ph), valid, pidx, r2 = packs[t]
-        c = stencil_counts_pallas_sym(
-            px, py, pz, r2, valid, box.lengths, periodic, levels[t],
-            interpret=interpret,
-        )
-        totals_ell.append(c.astype(jnp.float32))
+        planes, pidx, ovf = pack(t, levels[t], caps[t])
+        overflow = overflow | ovf
+        packs.append((planes, pidx))
+        totals_ell.append(count(planes, planes, levels[t], True))
 
-    # cross passes at the coarser level: targets reuse tier-a's pack;
-    # tier-b candidates get their own pack at level_a
-    cross_results = []  # (pidx_b, vals_b) back-maps for the candidate side
+    # cross passes at the coarser level a: tier-b gets its own pack there
+    cross_results = []  # (pidx_b, vals_b) back-maps for the fine tier
     for a in range(T):
         for b in range(a + 1, T):
-            perm_a, _ = rowmajor_cell_perm(levels[a], curve)
-            packed_b, valid_b, pidx_b, ovf_b = ell_pack_gather(
-                keys_s, perm_a, (xs_s, ys_s, zs_s, hs_s),
-                cross_caps[(a, b)], levels[a],
-                cell_override=cells_for(b, levels[a]),
-            )
+            planes_b, pidx_b, ovf_b = pack(b, levels[a], cross_caps[(a, b)])
             overflow = overflow | ovf_b
-            r2_b = jnp.where(
-                valid_b, (2.0 * packed_b[3]) ** 2, jnp.float32(-1.0))
-            (pxa, pya, pza, pha), _, _, r2_a = packs[a]
-            add_a, add_b = stencil_counts_pallas_cross(
-                (pxa, pya, pza, r2_a),
-                (packed_b[0], packed_b[1], packed_b[2], r2_b),
-                valid_b, box.lengths, periodic, levels[a],
-                interpret=interpret,
-            )
-            totals_ell[a] = totals_ell[a] + add_a.astype(jnp.float32)
-            cross_results.append((pidx_b, add_b.astype(jnp.float32)))
+            planes_a = packs[a][0]
+            totals_ell[a] = totals_ell[a] + count(
+                planes_a, planes_b, levels[a], False)
+            cross_results.append(
+                (pidx_b, count(planes_b, planes_a, levels[a], False)))
 
     # back-map 1: the same-tier pidx sets PARTITION [0, n): one sort of
     # the concatenated (pidx, vals) puts every particle's own-layout total
     # at its tier-sorted position
-    all_pidx = jnp.concatenate([packs[t][2].reshape(-1) for t in range(T)])
+    all_pidx = jnp.concatenate([packs[t][1].reshape(-1) for t in range(T)])
     all_vals = jnp.concatenate([v.reshape(-1) for v in totals_ell])
     ps, vs = jax.lax.sort((all_pidx, all_vals), num_keys=1, is_stable=False)
     total_ts = vs[:n]
@@ -229,15 +215,16 @@ def cell_list_neighbor_counts_tiered(
         [(a, b) for a in range(T) for b in range(a + 1, T)],
     ):
         fill_p = jnp.concatenate(
-            [packs[t][2].reshape(-1) for t in range(T) if t != b]
+            [packs[t][1].reshape(-1) for t in range(T) if t != b]
         )
         cp = jnp.concatenate([pidx_b.reshape(-1), fill_p])
         cv = jnp.concatenate(
-            [vals_b.reshape(-1), jnp.zeros(fill_p.shape, jnp.float32)]
+            [vals_b.reshape(-1), jnp.zeros(fill_p.shape, vals_b.dtype)]
         )
         ps2, vs2 = jax.lax.sort((cp, cv), num_keys=1, is_stable=False)
         total_ts = total_ts + vs2[:n]
 
-    # back to the caller's (key-sorted) order
-    _, counts = jax.lax.sort((orig_s, total_ts), num_keys=1, is_stable=False)
+    # back to the caller's (key-sorted) order: orig_s is a permutation
+    counts = jnp.zeros((n,), total_ts.dtype).at[orig_s].set(
+        total_ts, unique_indices=True)
     return counts.astype(jnp.uint32), overflow

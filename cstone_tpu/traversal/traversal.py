@@ -1,6 +1,6 @@
 """Generic batched octree walks.
 
-TPU-native re-design of the reference's stack-based traversals (reference:
+JAX re-design of the reference's stack-based traversals (reference:
 include/cstone/traversal/traversal.hpp:69-110). Instead of one sequential
 DFS per thread, all N queries march in lockstep through their own explicit
 stacks inside a single `lax.while_loop`; each iteration pops one node per
@@ -296,7 +296,7 @@ def dual_traversal(
     dropped (the reference's M2L/far endpoint), close pairs of two leaves
     are emitted (the P2P endpoint), and otherwise the COARSER node is
     split into its 8 children (ties split `a`; a leaf forces splitting
-    the other node) — the same descent rule as the reference. TPU
+    the other node) — the same descent rule as the reference. JAX
     formulation: a level-synchronous frontier of pairs expanded 8-wide
     per iteration, compacted with a sort (no scatters in the loop).
 

@@ -1,6 +1,6 @@
 """Parallel binary radix tree over sorted SFC keys (Karras 2012).
 
-TPU-native equivalent of the reference's binary tree (reference:
+JAX equivalent of the reference's binary tree (reference:
 include/cstone/tree/btree.hpp:86-269, btree.cuh). Kept, like the
 reference, as the historical/alternative construction for collision
 detection; the production halo path traverses the linked octree directly

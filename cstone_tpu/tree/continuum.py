@@ -1,6 +1,6 @@
 """Cornerstone trees from analytic particle-concentration functions.
 
-TPU-native equivalent of the reference's continuum trees (reference:
+JAX equivalent of the reference's continuum trees (reference:
 include/cstone/tree/continuum.hpp) — a testing aid that builds a tree from
 a density field instead of particles: each node's count is estimated from
 the concentration sampled at its 8 corners times its volume.

@@ -1,4 +1,4 @@
-"""Cornerstone leaf-array octree build, TPU-native.
+"""Cornerstone leaf-array octree build.
 
 Re-design of the reference's core data structure (reference:
 include/cstone/tree/csarray.hpp + csarray_gpu.cu). The cornerstone format
@@ -6,7 +6,7 @@ is a sorted array of SFC keys containing 0 and 2^(3*maxLevel) whose
 consecutive differences are powers of 8; entry i is the start key of leaf
 i and the end key of leaf i-1 (csarray.hpp:30-50).
 
-TPU adaptation: the number of tree nodes changes every rebalance step,
+JAX adaptation: the number of tree nodes changes every rebalance step,
 which XLA cannot express with dynamic shapes. We carry a capacity-padded
 key array plus a node count; the padding tail repeats the terminal key
 2^(3*maxLevel), which makes every binary search and count naturally return
@@ -134,8 +134,8 @@ def _shift_down(a: jax.Array, k: int, fill) -> jax.Array:
 
 def _select_shift_down(a: jax.Array, k_arr: jax.Array, fill) -> jax.Array:
     """out[i] = a[i - k_arr[i]] for k_arr in [0, 8) — an 8-way static-shift
-    select instead of a gather (XLA TPU gathers cost ~18ns per INDEX; the
-    8 shifted copies + selects are pure VPU passes)."""
+    select instead of a gather: the 8 shifted copies + selects are
+    elementwise passes)."""
     out = jnp.full(a.shape, fill, a.dtype)
     for k in range(8):
         out = jnp.where(k_arr == k, _shift_down(a, k, fill), out)
@@ -195,11 +195,8 @@ def rebalance_decision(
 
     # parent (8-sibling-group) counts, gather-free: ws8[j] = sum of
     # counts[j..j+7] from three doubling shifted adds, then
-    # parent_count[i] = ws8[i - sib] via the 8-way shift select. The old
-    # (cap, 8) gather paid ~18ns per index — ~58ms at capacity 400k, the
-    # dominant term of the 2M octree build (VERDICT r4 #2); this is three
-    # elementwise passes. i64 element ops lower to plain u32-pair vector
-    # arithmetic (only the big i64 cumsum reduce-window is pathological).
+    # parent_count[i] = ws8[i - sib] via the 8-way shift select: three
+    # elementwise passes instead of a (cap, 8) gather.
     c64 = counts.astype(jnp.int64)
     s1 = c64 + _shift_up(c64, 1, jnp.int64(0))
     s2 = s1 + _shift_up(s1, 2, jnp.int64(0))
@@ -227,16 +224,14 @@ def rebalance_tree(
 ) -> Tuple[jax.Array, jax.Array]:
     """Emit the rebalanced tree from op codes (csarray.hpp:350-409).
 
-    Scatter + scan-fill formulation: each emitting source (op > 0)
-    scatters its start key and a packed (output position, new level)
-    record to its FIRST output slot (the exclusive scan of op codes);
-    running-max scans fill the records forward across each split's slot
-    range, and every output slot j then computes its key as
+    Searchsorted + gather formulation: the inclusive scan of the op codes
+    gives every emitting source (op > 0) its output slot range
+    [exc, inc); each output slot j finds its source (the unique emitter
+    with exc <= j < inc) with one merged searchsorted over the scan, and
+    ONE stacked row gather fetches the source's start key and packed
+    (first output slot, new level) record. Slot j's key is then
     start + (j - first_slot) * nodeRange(new_level) — all elementwise.
-    This replaces the old per-slot searchsorted + four source gathers
-    (~18ns/index on XLA TPU, ~30ms at capacity 400k) with two cap-sized
-    scatters and two log-depth scans. Returns (new_keys (cap+1,),
-    new_n_nodes).
+    Returns (new_keys (cap+1,), new_n_nodes).
     """
     dt = tree_keys.dtype
     cap = tree_keys.shape[0] - 1
@@ -256,11 +251,8 @@ def rebalance_tree(
 
     # source of output slot j: the unique emitter m with exc[m] <= j <
     # inc[m], i.e. src(j) = #nodes with inc <= j. inc is monotone, so one
-    # merged searchsorted answers every slot (~1.5ms at 400k), and ONE
-    # stacked row-gather fetches each source's (key, slot/level) record —
-    # replacing two cap-sized scalar scatters + two log-depth u64 scans
-    # (~27ms at capacity 400k, the dominant term of the 2M rebuild after
-    # the r5 gather-free decision; scripts/exp_tree.py / exp_count.py).
+    # merged searchsorted answers every slot, and ONE stacked row-gather
+    # fetches each source's (key, slot/level) record.
     from ..ops.primitives import multi_searchsorted
 
     j = jnp.arange(cap, dtype=jnp.int32)

@@ -1,12 +1,12 @@
 """Fully-linked internal octree, built from a cornerstone leaf array.
 
-TPU-native re-design of the reference's one-pass linked build (reference:
+JAX re-design of the reference's one-pass linked build (reference:
 include/cstone/tree/octree.hpp:55-214, octree_gpu.cu). Leaves plus implicit
 internal nodes are laid out into one prefix array (Warren-Salmon
 placeholder-bit keys), sorted once, and linked with vectorized binary
 searches — no iteration over levels during construction.
 
-TPU adaptation: node counts change per step, so every array is padded to a
+JAX adaptation: node counts change per step, so every array is padded to a
 static capacity; unassigned slots carry an all-ones sentinel prefix that
 sorts behind every valid node. All scatters/gathers are batched; the
 child-link search runs as one global vectorized searchsorted (the prefix
@@ -151,7 +151,7 @@ def build_linked_octree(leaves: jax.Array, n_leaf, cap_nodes: int | None = None)
     # ---- sort by prefix, build permutations (octree.hpp:196-209) ----------
     # SORT-formulated unsorted layout: instead of scattering leaf/internal
     # prefixes into their unsorted slots (2 scalar scatters of cap_leaf
-    # indices, ~18ns each on TPU) and sorting that, concatenate
+    # indices) and sorting that, concatenate
     # (prefix, unsorted-slot-id) rows for both node classes and let ONE
     # sort produce prefixes_sorted + the sorted->unsorted permutation
     # directly. Invalid rows carry the sentinel prefix and sort behind all
@@ -288,8 +288,7 @@ def upsweep(
     # Children of every internal node are 8 consecutive slots, and groups
     # tile [1, n_nodes) exactly — so each level's combine is a STATIC
     # reshape-reduce of q[1:] plus a small scatter to the parents, instead
-    # of a (cap_nodes, 8) gather per level (TPU gathers cost ~18ns/index;
-    # the old form spent ~70ms at 37k nodes, this one ~5ms).
+    # of a (cap_nodes, 8) gather per level.
     n_groups = (cap_nodes - 1) // 8
     gidx = jnp.arange(n_groups, dtype=jnp.int32)
     child0 = 1 + 8 * gidx

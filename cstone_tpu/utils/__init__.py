@@ -1,4 +1,5 @@
-"""Utilities: checkpointing, timing."""
+"""Utilities: checkpointing, timing, the compile-cache location."""
 
 from .checkpoint import load_checkpoint, save_checkpoint
+from .compile_cache import configure_compile_cache
 from .timing import Timer

@@ -4,7 +4,7 @@ The reference only exposes a serialization hook on Box (reference:
 include/cstone/sfc/box.hpp:167-175, loadOrStore) and leaves particle data
 to the client. Here the whole DomainState is a pytree, so checkpointing is
 uniform: any pytree (DomainState, particle field dicts, model states) is
-saved/restored with orbax if available, with a numpy .npz fallback.
+saved to and restored from one numpy .npz file.
 """
 
 from __future__ import annotations
@@ -13,22 +13,15 @@ import pathlib
 from typing import Any
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 __all__ = ["save_checkpoint", "load_checkpoint"]
 
 
 def save_checkpoint(path, tree: Any) -> None:
-    """Save a pytree of arrays to `path` (directory for orbax, file for npz)."""
+    """Save a pytree of arrays to `path` with the .npz suffix."""
     path = pathlib.Path(path)
-    try:
-        import orbax.checkpoint as ocp
-
-        ckptr = ocp.PyTreeCheckpointer()
-        ckptr.save(path.absolute(), tree, force=True)
-        return
-    except Exception:
-        pass
     leaves, treedef = jax.tree_util.tree_flatten(tree)
     np.savez(
         path.with_suffix(".npz"),
@@ -40,18 +33,7 @@ def save_checkpoint(path, tree: Any) -> None:
 def load_checkpoint(path, like: Any) -> Any:
     """Load a pytree saved by save_checkpoint; `like` provides the structure."""
     path = pathlib.Path(path)
-    try:
-        import orbax.checkpoint as ocp
-
-        if path.exists() and path.is_dir():
-            ckptr = ocp.PyTreeCheckpointer()
-            return ckptr.restore(path.absolute(), item=like)
-    except Exception:
-        pass
     data = np.load(path.with_suffix(".npz"))
     leaves, treedef = jax.tree_util.tree_flatten(like)
-    loaded = [data[f"leaf_{i}"] for i in range(len(leaves))]
-    import jax.numpy as jnp
-
-    loaded = [jnp.asarray(l) for l in loaded]
+    loaded = [jnp.asarray(data[f"leaf_{i}"]) for i in range(len(leaves))]
     return jax.tree_util.tree_unflatten(treedef, loaded)

@@ -22,7 +22,13 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["gaussian_coords", "plummer_coords", "adaptive_h", "grid_density"]
+__all__ = [
+    "gaussian_coords",
+    "plummer_coords",
+    "truncated_plummer_coords",
+    "adaptive_h",
+    "grid_density",
+]
 
 
 def gaussian_coords(
@@ -61,6 +67,22 @@ def plummer_coords(n: int, seed: int = 42, dtype=np.float32) -> np.ndarray:
     out = out[:n]
     out -= out.mean(axis=0, keepdims=True)
     return out.astype(dtype)
+
+
+def truncated_plummer_coords(
+    n: int, scale: float = 0.25, seed: int = 42, dtype=np.float32
+) -> np.ndarray:
+    """(n, 3) Plummer sphere (plummer_coords) with its scale radius set to
+    `scale` box sides, centred in the unit box; particles outside the box
+    are rejected, so the cluster keeps its core profile up to the faces."""
+    a = 3.0 * np.pi / 16.0  # plummer_coords' scale radius
+    out = np.empty((0, 3), np.float64)
+    m, s = n, seed
+    while out.shape[0] < n:
+        p = plummer_coords(2 * m, seed=s, dtype=np.float64) * (scale / a) + 0.5
+        out = np.concatenate([out, p[np.all((p >= 0.0) & (p < 1.0), axis=1)]])
+        m, s = n - out.shape[0], s + 1
+    return out[:n].astype(dtype)
 
 
 def grid_density(pos: np.ndarray, limits, level: int = 6) -> np.ndarray:

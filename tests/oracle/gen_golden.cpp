@@ -1,6 +1,6 @@
 // Golden-vector generator: runs the REFERENCE implementation (mounted
 // read-only at /root/reference) on deterministic inputs and dumps JSON
-// test vectors. The TPU framework's unit tests compare against these files
+// test vectors. The JAX framework's unit tests compare against these files
 // bit-exactly — the same oracle pattern the reference uses for its own
 // GPU-vs-CPU tests (reference: test/performance/octree.cu:199-203).
 //

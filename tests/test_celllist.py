@@ -2,16 +2,22 @@
 oracle — same semantics contract as test_neighbors.py (reference:
 test/unit/neighbors/all_to_all.hpp)."""
 
+from functools import partial
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from cstone_tpu.ops.pallas_stencil import stencil_pallas
 from cstone_tpu.sfc import make_box, PERIODIC
 from cstone_tpu.sfc.keys import max_tree_level
 from cstone_tpu.traversal.celllist import (
     cell_list_neighbor_counts,
     choose_cell_level,
+    stencil_xla,
 )
+
+KERNEL = partial(stencil_pallas, interpret=True)
 from tests.test_neighbors import _setup, brute_force_counts
 
 
@@ -64,50 +70,46 @@ def test_celllist_uniform_h_finer_level():
     np.testing.assert_array_equal(np.asarray(counts), expected)
 
 
+def _counts_both(use_stencil, keys, x, y, z, h, box, level, cap):
+    """The entry point's counts with the plain stencil and with the
+    kernel in interpret mode."""
+    out = []
+    for stencil in (stencil_xla, KERNEL):
+        use_stencil(stencil)
+        counts, ovf = cell_list_neighbor_counts(
+            keys, jnp.asarray(x), jnp.asarray(y), jnp.asarray(z),
+            jnp.asarray(h), box, level, cap=cap,
+        )
+        assert not bool(ovf)
+        out.append(np.asarray(counts))
+    return out
+
+
 @pytest.mark.parametrize("periodic", [False, True])
-def test_pallas_stencil_matches_xla(periodic):
+def test_pallas_stencil_matches_xla(periodic, use_stencil):
     # the Pallas kernel (interpret mode on CPU) must agree with the XLA
     # roll stencil, which is oracle-verified above
     n = 1500
     x, y, z, h, keys, box = _setup(n, periodic, seed=77)
-    level = 2  # D=4 grid; cap=64 -> z-block of 2 cells (128 lanes)
+    level = 2  # D=4 grid
     cap = max(64, _tight_cap(keys, level))
-    cap = -(-cap // 64) * 64
-    counts_xla, ovf = cell_list_neighbor_counts(
-        keys, jnp.asarray(x), jnp.asarray(y), jnp.asarray(z), jnp.asarray(h),
-        box, level, cap=cap, impl="xla",
-    )
-    assert not bool(ovf)
-    counts_pl, ovf2 = cell_list_neighbor_counts(
-        keys, jnp.asarray(x), jnp.asarray(y), jnp.asarray(z), jnp.asarray(h),
-        box, level, cap=cap, impl="pallas", interpret=True,
-    )
-    assert not bool(ovf2)
-    np.testing.assert_array_equal(np.asarray(counts_pl), np.asarray(counts_xla))
+    counts_xla, counts_pl = _counts_both(
+        use_stencil, keys, x, y, z, h, box, level, cap)
+    np.testing.assert_array_equal(counts_pl, counts_xla)
 
 
 @pytest.mark.parametrize("periodic", [False, True])
-@pytest.mark.parametrize("impl,const_h", [("pallas", True), ("pallas_asym", False)])
-def test_pallas_stencil_variants_match_xla(periodic, impl, const_h):
-    # symmetric kernel with the constant-radius fast path (no packed r2
-    # plane) and the one-sided kernel must both agree with the XLA roll
-    # stencil; uniform h so const_h's promise holds
+def test_pallas_stencil_variants_match_xla(periodic, use_stencil):
+    # uniform h at a cap that is not a power of two: the kernel pads the
+    # ELL rows and must still agree with the XLA roll stencil
     n = 1500
     x, y, z, h, keys, box = _setup(n, periodic, seed=99, hval=0.09)
     level = 2
-    cap = max(64, _tight_cap(keys, level))
-    cap = -(-cap // 64) * 64
-    counts_xla, ovf = cell_list_neighbor_counts(
-        keys, jnp.asarray(x), jnp.asarray(y), jnp.asarray(z), jnp.asarray(h),
-        box, level, cap=cap, impl="xla",
-    )
-    assert not bool(ovf)
-    counts_pl, ovf2 = cell_list_neighbor_counts(
-        keys, jnp.asarray(x), jnp.asarray(y), jnp.asarray(z), jnp.asarray(h),
-        box, level, cap=cap, impl=impl, interpret=True, const_h=const_h,
-    )
-    assert not bool(ovf2)
-    np.testing.assert_array_equal(np.asarray(counts_pl), np.asarray(counts_xla))
+    cap = _tight_cap(keys, level) + 8
+    assert cap & (cap - 1), "the case must exercise the padding"
+    counts_xla, counts_pl = _counts_both(
+        use_stencil, keys, x, y, z, h, box, level, cap)
+    np.testing.assert_array_equal(counts_pl, counts_xla)
 
 
 def test_rowmajor_perm_matches_jax_encode():
@@ -143,23 +145,22 @@ def test_choose_cell_level_bounds():
 
 
 def test_sym_kernel_threshold_pair_flip_is_bounded():
-    """Pins the documented 1-ulp orientation caveat of the symmetric
-    half-stencil (ops/pallas_stencil.py: a pair crossing a periodic
-    boundary is evaluated in ONE orientation, so ghost-image rounding can
-    differ from the per-target stencil by 1 ulp of d2 — the reassociation
-    freedom the reference accepts between CPU and GPU paths). Constructs a
-    pair whose two orientation d2 values straddle the radius threshold in
-    f32, then requires: non-pair counts EXACT, pair counts within +-1 of
-    the per-target XLA stencil. Oracle tests elsewhere use seeds away from
-    thresholds; this is the constructed witness."""
+    """Pins the threshold-flip bound between the kernel and the plain
+    stencil. A pair crossing a periodic boundary has two f32 orientation
+    values of d2 (ghost b at cb - L seen from a, ghost a at ca + L seen
+    from b); a compiler that contracts or reorders the distance sum may
+    land on either side of a radius that sits between them — the
+    reassociation freedom the reference accepts between its CPU and GPU
+    paths. Constructs such a pair with the radius between the two values,
+    then requires: non-pair counts EXACT, pair counts within +-1 of the
+    plain stencil. Oracle tests elsewhere use seeds away from thresholds;
+    this is the constructed witness."""
     import jax
 
-    from cstone_tpu.ops.pallas_stencil import stencil_counts_pallas_sym
     from cstone_tpu.sfc import compute_sfc_keys
     from cstone_tpu.traversal.celllist import (
         ell_pack_gather,
         rowmajor_cell_perm,
-        stencil_neighbor_counts,
     )
 
     f32 = np.float32
@@ -202,9 +203,9 @@ def test_sym_kernel_threshold_pair_flip_is_bounded():
     pr2 = jnp.where(valid, pr2, jnp.float32(-1.0))
     periodic = (True, True, True)
 
-    sym = stencil_counts_pallas_sym(
-        px, py, pz, pr2, valid, box.lengths, periodic, level, interpret=True)
-    xla = stencil_neighbor_counts(px, py, pz, pr2, valid, box, level)
+    args = ((px, py, pz, pr2), (px, py, pz), box.lengths, periodic, level)
+    sym = KERNEL(*args)
+    xla = stencil_xla(*args)
 
     def back(counts_ell):
         ps, cs = jax.lax.sort(

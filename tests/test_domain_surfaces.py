@@ -309,7 +309,7 @@ def test_halos_class_matches_domain_inline_path():
 
 def test_sph_density_fused_client_matches_oracle_and_loop():
     """models/sph.py FUSED path (cell_level/cell_cap set): per-particle
-    masses ride the kernel's mass plane inside the traversal
+    masses ride the stencil's mass plane inside the traversal
     (find_neighbors.cuh:94-124's op-in-traversal design) — validated
     against the f64 oracle, then driven as a 4-step simulation loop with
     drifting positions and carried DomainState (README.md:60-100 usage)."""
@@ -362,7 +362,7 @@ def test_sph_density_fused_client_matches_oracle_and_loop():
     p_t = pos.copy()
     for step in range(4):
         state, rho, res = sph_density_step(
-            domain, state, cell_level=level, cell_cap=128, interpret=True,
+            domain, state, cell_level=level, cell_cap=128,
         )
         assert int(res.overflow) == 0, f"overflow at step {step}"
         rho_ref = oracle(p_t)

@@ -1,7 +1,8 @@
 """Fused SPH density stencil vs brute-force oracle.
 
-The density interaction runs INSIDE the cell-list traversal
-(ops/pallas_stencil.py op="density") — validated here against an O(n^2)
+The density interaction runs INSIDE the cell-list stencil
+(op="density", here the Pallas kernel in interpret mode) — validated
+against an O(n^2)
 reference of the same formula rho_i = (m/pi h_i^3)(sum_j W(|r_ij|/h_i) +
 W(0)), cubic-spline W, periodic and open boundaries, uniform and
 per-particle h (reference semantics: the per-pair op of
@@ -50,7 +51,7 @@ def brute_density(x, y, z, h, periodic):
 
 @pytest.mark.parametrize("periodic", [False, True])
 @pytest.mark.parametrize("const_h", [False, True])
-def test_cell_list_density_vs_bruteforce(periodic, const_h):
+def test_cell_list_density_vs_bruteforce(periodic, const_h, interpret_kernel):
     n = 1200
     x, y, z, h, keys, box = _setup(
         n, periodic, seed=31, hval=0.09 if const_h else None
@@ -59,7 +60,7 @@ def test_cell_list_density_vs_bruteforce(periodic, const_h):
     cap = -(-max(64, _tight_cap(keys, level)) // 64) * 64
     rho, ovf = cell_list_sph_density(
         keys, jnp.asarray(x), jnp.asarray(y), jnp.asarray(z), jnp.asarray(h),
-        box, level, cap=cap, mass=MASS, const_h=const_h, interpret=True,
+        box, level, cap=cap, mass=MASS,
     )
     assert not bool(ovf)
     expected = brute_density(x, y, z, h, periodic)
@@ -90,11 +91,11 @@ def brute_density_m(x, y, z, h, m, periodic):
 
 @pytest.mark.parametrize("periodic", [False, True])
 @pytest.mark.parametrize("const_h", [False, True])
-def test_cell_list_density_per_particle_mass(periodic, const_h):
-    # the kernel's mass plane: rho_i sums the NEIGHBOR's m_j on the target
-    # side and m_i on the candidate side of the half-stencil — asymmetric
-    # per-pair payloads over the symmetric weights
-    # (find_neighbors.cuh:94-124's per-particle payload)
+def test_cell_list_density_per_particle_mass(periodic, const_h,
+                                            interpret_kernel):
+    # the kernel's candidate mass plane: rho_i sums the NEIGHBOR's m_j
+    # (find_neighbors.cuh:94-124's per-particle payload); const_h selects
+    # a uniform-h sample
     n = 1100
     x, y, z, h, keys, box = _setup(
         n, periodic, seed=77, hval=0.09 if const_h else None
@@ -106,8 +107,7 @@ def test_cell_list_density_per_particle_mass(periodic, const_h):
     cap = -(-max(64, _tight_cap(keys, level)) // 64) * 64
     rho, ovf = cell_list_sph_density(
         keys, jnp.asarray(x), jnp.asarray(y), jnp.asarray(z), jnp.asarray(h),
-        box, level, cap=cap, mass=jnp.asarray(m), const_h=const_h,
-        interpret=True,
+        box, level, cap=cap, mass=jnp.asarray(m),
     )
     assert not bool(ovf)
     expected = brute_density_m(x, y, z, h, m, periodic)

@@ -4,7 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 
 from cstone_tpu.domain.domain import Domain
-from cstone_tpu.utils import Timer, load_checkpoint, save_checkpoint
+from cstone_tpu.utils import (
+    Timer,
+    configure_compile_cache,
+    load_checkpoint,
+    save_checkpoint,
+)
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -28,3 +33,26 @@ def test_timer():
     out = t.stage("add", lambda a: a + 1, jnp.arange(10))
     assert "add" in t.times and t.times["add"] >= 0
     assert "total" in t.report()
+
+
+def test_compile_cache_defaults_to_repo_dir(monkeypatch):
+    import jax
+
+    from cstone_tpu.utils.compile_cache import REPO_CACHE_DIR
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    got = configure_compile_cache()
+    assert got == str(REPO_CACHE_DIR)
+    assert jax.config.jax_compilation_cache_dir == got
+    assert REPO_CACHE_DIR.name == ".cstone_jax_cache"
+    assert (REPO_CACHE_DIR.parent / "cstone_tpu").is_dir()
+
+
+def test_compile_cache_env_dir_is_left_to_jax(monkeypatch, tmp_path):
+    import jax
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert configure_compile_cache() == str(tmp_path)
+    # no directory is set in code where the variable names one
+    assert jax.config.jax_compilation_cache_dir == before
